@@ -16,27 +16,28 @@ harness runs it at the BASELINE sizes:
             oracles = semigroup identity
             exp(tA)b = exp(t/2·A)(exp(t/2·A)b) + m-convergence → ≤ 1e-10
 
-On TPU, f64 elementwise/matvec work runs on-chip (emulated, ~correct) and
-every small reduced problem is host-staged in full f64
-(ops/host_reduced.py, reduced="host" — the default on TPU+x64). On CPU the
-same script validates the numerics directly. Results feed BENCHMARKS.md.
+Everything runs in f64 on the device, reduced problems included.
+
+Run: python benchmarks/accuracy_f64.py
 """
 
 import json
+import os
 import sys
 import time
 
 import jax
 
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
 
 import jax.numpy as jnp
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import exponentialutilities_jl_tpu as eu
+from exponentialutilities_jl_tpu.utils.aot import use_compile_cache
+
+use_compile_cache()
 
 
 def config2():
@@ -78,9 +79,8 @@ def config3():
 
 
 def config5():
-    # 10M rows in f64: ONLY the O(n)-memory two-pass path fits — the
-    # (m+1, n) f64 basis (plus the TPU f64-emulation temporaries) blows
-    # the 16 GB HBM (measured: 17.2 GB requested). Oracles: the semigroup
+    # 10M rows in f64 through the O(n)-memory two-pass path. Oracles: the
+    # semigroup
     # identity (two independent solves at t/2 vs one at t) and
     # m-convergence (m=30 vs m=40 agree below the target long before
     # either equals the truth).
@@ -104,11 +104,8 @@ def config5():
 
 
 def config_phi_pade():
-    """Dense f64 Al-Mohy–Liu Padé φ ON the target backend (VERDICT r2
-    missing #2: the reference's primary dense-φ algorithm never ran at
-    f64 on TPU; the Newton–Schulz denominator engine closes that). On
-    TPU solve='auto' resolves to 'newton'; oracle = host scipy block
-    matrix (ops/host_reduced.host_phi)."""
+    """Dense f64 Al-Mohy–Liu Padé φ on the device; oracle = host scipy
+    block matrix (ops/host_reduced.host_phi)."""
     from exponentialutilities_jl_tpu.ops.host_reduced import host_phi
 
     n, k = 256, 3

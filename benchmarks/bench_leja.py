@@ -5,25 +5,32 @@ Operator: 1-D advection–diffusion, n = 1e6, Gershgorin interval
 (−4400, 0) → t·s = 1100 over the t = 1 horizon (q = 28 substeps at
 max_z = 40). Both drivers are device-resident (one/few dispatches);
 timing = best-of warm calls.
+
+Run: python benchmarks/bench_leja.py
 """
 
+import os
+import sys
 import time
 
 import numpy as np
 
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
 
 def main():
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
     import jax.numpy as jnp
+
+    from exponentialutilities_jl_tpu.utils.aot import use_compile_cache
+    use_compile_cache()
 
     from exponentialutilities_jl_tpu import (StencilOperator,
                                              phiv_timestep_device)
     from exponentialutilities_jl_tpu.models.leja import (
         phiv_timestep_leja, real_interval)
 
-    print(f"backend: {jax.default_backend()}")
+    print(f"device: {jax.devices()[0].device_kind}")
     n = 1_000_000
     dt = jnp.float32
     # Diffusion-dominated advection–diffusion (mesh Peclet 0.1): the

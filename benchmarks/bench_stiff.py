@@ -5,25 +5,32 @@ t = 100 with spectrum [-12, 0] → t·‖A‖ = 1200. The Chebyshev-U tail for
 a decay spectrum cuts at degree O(√(t·‖A‖·ln 1/tol)) (~150 here), so the
 whole horizon is ONE reduction-free pass; the NW driver substeps with
 Krylov rebuilds. Timing: single warm calls (both paths are one or few
-dispatches; the chain-slope method is unnecessary at these durations).
+dispatches).
+
+Run: python benchmarks/bench_stiff.py
 """
 
+import os
+import sys
 import time
 
 import numpy as np
 
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
 
 def main():
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
     import jax.numpy as jnp
+
+    from exponentialutilities_jl_tpu.utils.aot import use_compile_cache
+    use_compile_cache()
 
     from exponentialutilities_jl_tpu import (expv_chebyshev,
                                              expv_timestep_device,
                                              laplacian_nd_stencil)
 
-    print(f"backend: {jax.default_backend()}")
+    print(f"device: {jax.devices()[0].device_kind}")
     nx = ny = nz = 216
     n = nx * ny * nz
     dt = jnp.float32

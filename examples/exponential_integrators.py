@@ -2,7 +2,7 @@
 
 The reference is the compute backend for OrdinaryDiffEq's exponential
 integrators (reference README.md:13-16); this example shows the same
-patterns TPU-natively:
+patterns with the device-resident drivers:
 
 1. Heat equation  u_t = Δu           — exact step via `expv`.
 2. Reaction–diffusion u_t = Δu + N(u) — exponential Euler via `phiv`

@@ -1,8 +1,8 @@
 """Example: exp(tA)b on an unstructured sparse matrix with SellOperator.
 
 Pipeline: scipy matrix → RCM permutation (native C++) → SELL-window pack
-→ vector-gather Pallas SpMV inside the Lanczos expv, all in the permuted
-basis. Runs on CPU (XLA reference path) and TPU (Pallas kernel) unchanged.
+→ XLA gather SpMV inside the Lanczos expv, all in the permuted
+basis. Runs unchanged on the CPU and on a GPU (XLA gather SpMV).
 
   PYTHONPATH=. python examples/unstructured_sparse_expv.py
 """

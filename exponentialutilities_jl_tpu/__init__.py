@@ -1,16 +1,16 @@
-"""exponentialutilities.jl_tpu — a TPU-native matrix-exponential / φ-function
-/ Krylov framework (JAX / XLA / Pallas / pjit).
+"""exponentialutilities_jl_tpu — a matrix-exponential / φ-function / Krylov
+framework in JAX (XLA, shard_map, GSPMD), run on NVIDIA GPUs.
 
 Brand-new implementation with the capabilities of SciML/ExponentialUtilities.jl
-(reference mounted read-only at /root/reference), redesigned TPU-first:
-functional jit-compiled kernels with static shapes, masked dynamic truncation,
-MXU-batched orthogonalization, Pallas sparse matvecs, and shard_map
-row-partitioned distribution over device meshes.
+(the reference), designed for XLA: functional jit-compiled kernels with
+static shapes, masked dynamic truncation, batched (CGS2) orthogonalization,
+gather-free stencil matvecs, and shard_map row-partitioned distribution over
+device meshes.
 
 Public API (reference analogue: src/ExponentialUtilities.jl:64-72 exports):
 
 Dense exponentials      expm (higham2005 | generic | diagonalization |
-                        native | taylor — the solver-free f64-on-TPU engine)
+                        native | taylor — the solver-free engine)
 Dense φ functions       phi (auto → Al-Mohy–Liu Padé at f64), phi_pade,
                         phi_taylor, phi_scalar, phiv_dense
 Krylov subspaces        arnoldi, lanczos, KrylovBasis
@@ -21,7 +21,7 @@ Time-stepping drivers   expv_timestep, phiv_timestep (two_pass for O(n)
                         adaptivity), kiops
 Operators               LinearOperator, DenseOperator, DiagonalOperator,
                         MatrixFreeOperator, aslinearoperator; sparse:
-                        SellOperator (vector-gather SpMV), BlockELL,
+                        SellOperator (gather SpMV), BlockELL,
                         Banded, Stencil
 Distributed             parallel/ (shard_map + GSPMD; multi-host meshes)
 """

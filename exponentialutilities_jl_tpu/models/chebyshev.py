@@ -1,6 +1,6 @@
 """Chebyshev matrix-function actions for Hermitian operators.
 
-A TPU-first alternative to the Krylov path for ``exp(tA) b``, ``φ_k(tA) b``
+An alternative to the Krylov path for ``exp(tA) b``, ``φ_k(tA) b``
 and general ``f(A) b`` when A is Hermitian with a known (or cheaply
 estimated) spectral interval [λmin, λmax]:
 
@@ -33,11 +33,6 @@ Coefficients:
   * any f (φ_k, …): Chebyshev-T interpolation coefficients from a cosine
     transform of f sampled at Chebyshev points, converted to the U basis
     by b_k = (a_k − a_{k+2})/2.
-
-On TPU with a supported stencil operator the recurrence runs as the
-fused plane-sweep Pallas kernel (ops/kernels/lanczos_fused.py) with
-CONSTANT step coefficients ca=2/h, cb=−2c/h, cc=−1 — the sweep needs no
-moment feedback at all, so the plane pipeline never stalls on a scalar.
 
 The reference has no Chebyshev path (its expv is Krylov-only); this
 module is the "beyond" layer the north star asks for — same contract as
@@ -330,143 +325,7 @@ def _chebyshev_apply_scan(op, b, coeffs, center, inv_h):
     return w
 
 
-def _chebyshev_apply_fused(op, b, coeffs, center, halfwidth,
-                           interpret: bool = False):
-    """Fused plane-sweep Chebyshev apply for supported stencil operators:
-    the SAME Pallas sweeps as the Lanczos replay
-    (ops/kernels/lanczos_fused.py) driven with CONSTANT coefficients
-    ca = 2/h, cb = −2c/h, cc = −1 — no moment feedback, so the scan body
-    is a pure plane pipeline. coeffs (m,) only (single combination)."""
-    from ..ops.kernels.lanczos_fused import ghost_grid_for, fused_lanczos_step, \
-        _fused_dispatch
-
-    coeffs_static, cbuilder = _fused_dispatch(op)
-    gg = ghost_grid_for(op)
-    b = jnp.asarray(b)
-    dt = b.dtype
-    mask = jnp.asarray(gg.xmask())
-    cfields = cbuilder(gg, dt) if cbuilder is not None else None
-    step = functools.partial(fused_lanczos_step, grid_desc=gg,
-                             coeffs_static=coeffs_static, cfields=cfields,
-                             interpret=interpret)
-
-    ca = jnp.asarray(2.0 / halfwidth, dt)
-    cb = jnp.asarray(-2.0 * center / halfwidth, dt)
-    cc = jnp.asarray(-1.0, dt)
-    Bg = gg.to_ghost(b)
-    W0 = jnp.zeros_like(Bg)
-    # Sweep 0 emits y = u_0 = b and Z = A·u_0 (no accumulation yet).
-    Y, Z, _, _, W = step(Bg, Bg, jnp.zeros_like(Bg),
-                         jnp.stack([jnp.asarray(1.0, dt),
-                                    jnp.asarray(0.0, dt),
-                                    jnp.asarray(0.0, dt),
-                                    jnp.asarray(0.0, dt)]),
-                         mask, w_accum=W0)
-
-    def body(carry, cj):
-        # Sweep k accumulates cj·u_{k−1} from its Vc input while emitting
-        # u_k = ca·(A u_{k−1}) + cb·u_{k−1} + cc·u_{k−2}.
-        Y, Z, Yprev, W = carry
-        Yn, Zn, _, _, Wn = step(Z, Y, Yprev,
-                                jnp.stack([ca, cb, cc, cj.astype(dt)]),
-                                mask, w_accum=W)
-        return (Yn, Zn, Y, Wn), None
-
-    (_, _, _, W), _ = lax.scan(body, (Y, Z, jnp.zeros_like(Y), W),
-                               coeffs.astype(dt))
-    return gg.from_ghost(W)
-
-
-def _fused_ok(op, b, coeffs) -> bool:
-    if jax.default_backend() != "tpu" or coeffs.ndim != 1:
-        return False
-    if jnp.asarray(b).dtype != jnp.float32:
-        return False
-    if jnp.iscomplexobj(coeffs):
-        return False
-    from .expv import _fused_two_pass_supported
-    return _fused_two_pass_supported(op)
-
-
-def _resident_ok(op, b, coeffs, *, max_cols: int = 8) -> bool:
-    """1-D constant stencils small enough to run the WHOLE recurrence in
-    one VMEM-resident Pallas dispatch (ops/kernels/resident.py) — the
-    launch-bound regime where streaming kernels lose. Coefficient
-    STACKS (m, p) ride the multi-column kernel up to ``max_cols``
-    accumulators (VMEM budget)."""
-    if jax.default_backend() != "tpu":
-        return False
-    if coeffs.ndim > 2:
-        return False
-    if jnp.asarray(b).dtype != jnp.float32 or jnp.iscomplexobj(coeffs):
-        return False
-    from ..ops.kernels.resident import resident_supported
-    if not resident_supported(op):
-        return False
-    if coeffs.ndim == 2:
-        # multi-column VMEM budget: (p + ~6) whole-vector buffers
-        p = int(coeffs.shape[1])
-        n = op.shape[0]
-        if p > max_cols or n * (p + 6) * 4 > 48 * 2 ** 20:
-            return False
-    return True
-
-
-def _chebyshev_apply_resident_multi(op, b, coeffs, center, halfwidth,
-                                    interpret: bool = False):
-    """Multi-column one-dispatch Chebyshev apply: coeffs (m, p) → (n, p)
-    via the shared-ω multi-accumulator resident kernel."""
-    from ..ops.kernels.dispatch import chebyshev_rows
-    from ..ops.kernels.resident import recurrence_apply_resident_multi
-
-    dt = jnp.asarray(b).dtype
-    rows = chebyshev_rows(jnp.zeros((coeffs.shape[0],), dt), center,
-                          halfwidth, dt)
-    return recurrence_apply_resident_multi(op, b, rows, coeffs,
-                                           interpret=interpret)
-
-
-def _chebyshev_apply_resident(op, b, coeffs, center, halfwidth,
-                              interpret: bool = False):
-    """One-dispatch Chebyshev apply: the U recurrence as constant
-    (ca, cb, cc) = (2/h, −2c/h, −1) rows of the resident kernel."""
-    from ..ops.kernels.dispatch import chebyshev_rows
-    from ..ops.kernels.resident import recurrence_apply_resident
-
-    rows = chebyshev_rows(coeffs, center, halfwidth,
-                          jnp.asarray(b).dtype)
-    return recurrence_apply_resident(op, b, rows, interpret=interpret)
-
-
-def _tiled_ok(op, b, coeffs) -> bool:
-    """Giant 3-D grids past the plane budget in every orientation ride
-    the row-tiled fused sweep (ops/kernels/tiled.py) instead of the
-    XLA scan."""
-    if jax.default_backend() != "tpu" or coeffs.ndim != 1:
-        return False
-    if jnp.asarray(b).dtype != jnp.float32 or jnp.iscomplexobj(coeffs):
-        return False
-    from ..ops.kernels.tiled import tiled_plan_for
-    try:
-        tiled_plan_for(op, hermitian=True)
-    except (ValueError, TypeError):
-        return False
-    return True
-
-
-def _chebyshev_apply_tiled(op, b, coeffs, center, halfwidth,
-                           interpret: bool = False):
-    """Row-tiled fused Chebyshev apply (ops/kernels/tiled.py)."""
-    from ..ops.kernels.dispatch import chebyshev_rows
-    from ..ops.kernels.tiled import recurrence_apply_fused_tiled
-
-    rows = chebyshev_rows(coeffs, center, halfwidth,
-                          jnp.asarray(b).dtype)
-    return recurrence_apply_fused_tiled(op, b, rows, hermitian=True,
-                                        interpret=interpret)
-
-
-def chebyshev_apply(A, b, ucoeffs, bounds, *, fused: bool | None = None):
+def chebyshev_apply(A, b, ucoeffs, bounds):
     """``Σ_k ucoeffs[k]·U_k(Ã) b`` for Ã the affine map of A onto the
     interval ``bounds``. ucoeffs (m,) or (m, p) (all p combinations in
     one matvec stream, like ops/krylov.lanczos_replay)."""
@@ -476,40 +335,13 @@ def chebyshev_apply(A, b, ucoeffs, bounds, *, fused: bool | None = None):
     if post is not None:
         # sorted-conjugated container: the whole U_k recurrence runs in
         # the sorted basis (polynomials commute with the conjugation)
-        return post(chebyshev_apply(op, b, ucoeffs, bounds, fused=fused))
+        return post(chebyshev_apply(op, b, ucoeffs, bounds))
     lo, hi = bounds
     c = 0.5 * (hi + lo)
     h = 0.5 * (hi - lo)
     if h <= 0:
         raise ValueError(f"empty spectral interval {bounds}")
     coeffs = jnp.asarray(ucoeffs)
-    if fused is None and _resident_ok(op, b, coeffs):
-        if coeffs.ndim == 2:
-            return _chebyshev_apply_resident_multi(op, b, coeffs, c, h)
-        return _chebyshev_apply_resident(op, b, coeffs, c, h)
-    if (fused is None and coeffs.ndim == 1
-            and jax.default_backend() == "tpu"
-            and jnp.asarray(b).dtype == jnp.float32
-            and not jnp.iscomplexobj(coeffs)):
-        # banded matrices / small grids: whole recurrence in ONE
-        # resident dispatch (diag values or the ghost grid in VMEM)
-        from ..ops.kernels.resident import (
-            recurrence_apply_resident_banded,
-            recurrence_apply_resident_grid, resident_banded_supported,
-            resident_grid_supported)
-        if resident_banded_supported(op):
-            from ..ops.kernels.dispatch import chebyshev_rows
-            rows = chebyshev_rows(coeffs, c, h, jnp.asarray(b).dtype)
-            return recurrence_apply_resident_banded(op, b, rows)
-        if resident_grid_supported(op):
-            from ..ops.kernels.dispatch import chebyshev_rows
-            rows = chebyshev_rows(coeffs, c, h, jnp.asarray(b).dtype)
-            return recurrence_apply_resident_grid(op, b, rows)
-    use_fused = _fused_ok(op, b, coeffs) if fused is None else fused
-    if use_fused:
-        return _chebyshev_apply_fused(op, b, coeffs, c, h)
-    if fused is None and _tiled_ok(op, b, coeffs):
-        return _chebyshev_apply_tiled(op, b, coeffs, c, h)
     return _chebyshev_apply_scan(op, jnp.asarray(b), coeffs, c, 1.0 / h)
 
 
@@ -540,7 +372,7 @@ def _resolve_bounds(op, bounds):
 
 
 def expv_chebyshev(t, A, b, *, bounds=None, m: int | None = None,
-                   tol: float = 1e-7, fused: bool | None = None):
+                   tol: float = 1e-7):
     """``exp(tA) b`` for Hermitian A by a Chebyshev expansion — single
     pass, no inner products (module docstring). ``t`` may be complex
     (complex coefficients over the real recurrence, like the reference's
@@ -551,7 +383,6 @@ def expv_chebyshev(t, A, b, *, bounds=None, m: int | None = None,
         hint or a short-Lanczos estimate (``spectral_bounds``).
       m: fixed degree; None → chosen from the coefficient tail at `tol`.
       tol: relative truncation tolerance for the auto degree.
-      fused: force/forbid the fused Pallas sweep (None = auto).
     """
     op = aslinearoperator(A) if not isinstance(A, LinearOperator) else A
     if not op.is_hermitian:
@@ -568,8 +399,8 @@ def expv_chebyshev(t, A, b, *, bounds=None, m: int | None = None,
                           jnp.complex64 if np.iscomplexobj(full)
                           else b.dtype)
     return _check_finite(
-        chebyshev_apply(op, b, jnp.asarray(full, cdt), (lo, hi),
-                        fused=fused), "expv_chebyshev")
+        chebyshev_apply(op, b, jnp.asarray(full, cdt), (lo, hi)),
+        "expv_chebyshev")
 
 
 def phiv_chebyshev(t, A, b, k: int, *, bounds=None, m: int | None = None,
@@ -604,7 +435,7 @@ def phiv_chebyshev(t, A, b, k: int, *, bounds=None, m: int | None = None,
 def _chebyshev_combination_scan(op, Bt, C, center, inv_h, m: int):
     """W[s] = Σ_k Σ_j C[k,s,j]·U_k(Ã) Bt[j] — the stacked-column
     recurrence: one pass, (p+1) matvecs per term, a small (nt,p+1)@
-    (p+1,n) MXU matmul per step folds every snapshot's combination."""
+    (p+1,n) matmul per step folds every snapshot's combination."""
     rdt = jnp.finfo(Bt.dtype).dtype
     center = jnp.asarray(center, rdt)
     inv_h = jnp.asarray(inv_h, rdt)
@@ -688,21 +519,6 @@ def phiv_timestep_chebyshev(ts, A, B, *, bounds=None, tol: float = 1e-7,
     cdt = jnp.result_type(B.dtype,
                           jnp.complex64 if np.iscomplexobj(C) else B.dtype)
     Cj = jnp.asarray(C, cdt)
-    if (not np.iscomplexobj(C)
-            and _resident_ok(op, B[:, 0], Cj[:, :, 0], max_cols=nt)):
-        # 1-D small n: one multi-column resident dispatch per INPUT
-        # column b_j, all nt snapshot combinations sharing its ω chain
-        from ..ops.kernels.dispatch import chebyshev_rows
-        from ..ops.kernels.resident import recurrence_apply_resident_multi
-        rows = chebyshev_rows(jnp.zeros((len(C),), B.dtype), c, h,
-                              B.dtype)
-        U = None
-        for j in range(p + 1):
-            Uj = recurrence_apply_resident_multi(op, B[:, j], rows,
-                                                 Cj[:, :, j])
-            U = Uj if U is None else U + Uj
-        U = _check_finite(U, "phiv_timestep_chebyshev")   # (n, nt)
-        return U[:, 0] if scalar_ts else U
     W = _chebyshev_combination_scan(op, B.T, Cj,
                                     c, 1.0 / h, len(C))
     U = _check_finite(W.T, "phiv_timestep_chebyshev")     # (n, nt)
@@ -710,8 +526,7 @@ def phiv_timestep_chebyshev(ts, A, B, *, bounds=None, tol: float = 1e-7,
 
 
 def funm_chebyshev(f, A, b, *, bounds=None, m: int | None = None,
-                   tol: float = 1e-7, samples: int = 1024,
-                   fused: bool | None = None):
+                   tol: float = 1e-7, samples: int = 1024):
     """``f(A) b`` for Hermitian A and ANY scalar function f — beyond the
     reference's exp/φ repertoire (cosm/sincm/sqrtm actions, spectral
     filters, …). ``f`` is a numpy-vectorized callable evaluated at
@@ -733,5 +548,4 @@ def funm_chebyshev(f, A, b, *, bounds=None, m: int | None = None,
     cdt = jnp.result_type(b.dtype,
                           jnp.complex64 if np.iscomplexobj(coeffs)
                           else b.dtype)
-    return chebyshev_apply(op, b, jnp.asarray(coeffs, cdt), (lo, hi),
-                           fused=fused)
+    return chebyshev_apply(op, b, jnp.asarray(coeffs, cdt), (lo, hi))

@@ -3,7 +3,7 @@
 Capability parity with the reference's StaticArrays extension
 (reference: ext/ExponentialUtilitiesStaticArraysExt.jl:1-165), generalized:
 the reference specializes this algorithm to tiny SMatrix inputs; here it is
-also the *large-scale matvec-only* expv path — on TPU a sparse/stencil
+also the *large-scale matvec-only* expv path — a sparse/stencil
 operator runs s·m* bandwidth-bound matvecs with **no orthogonalization, no
 reduced problem and no basis storage**, which is the speed-of-light regime
 for well-conditioned exp(tA)b actions.
@@ -88,7 +88,7 @@ def taylor_theta(dtype):
 def _select_parameters_device(At, thetas):
     """(m*, s) via cost minimization with the α_p 1-norm-of-powers probes
     (reference: ext ``parameters``, lines 87-122) — entirely IN-TRACE: the
-    probe GEMMs run on the MXU and (m*, s) come back as traced int32 data
+    probe GEMMs run on the device and (m*, s) come back as traced int32 data
     feeding the masked Taylor loop, so the whole dense path is one jitted,
     vmappable program (no host O(n³) numpy — VERDICT r1 weak #7)."""
     rdt = jnp.finfo(At.dtype).dtype
@@ -254,7 +254,7 @@ def expv_taylor_batched(t, As, bs, *, tol: float | None = None):
     ``As``: (B, n, n); ``bs``: (B, n); ``t``: scalar or (B,). Everything —
     trace shift, the θ-table (m*, s) search, and the masked Taylor
     recurrence — runs per-batch-element inside ONE vmapped compiled
-    program, so a fleet of 16×16 systems is a few batched MXU GEMM chains
+    program, so a fleet of 16×16 systems is a few batched GEMM chains
     instead of B separate dispatches.
     """
     As = jnp.asarray(As)

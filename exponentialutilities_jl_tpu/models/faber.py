@@ -44,9 +44,9 @@ numerical range W(A) ⊆ [min λ(H), max λ(H)] × i·[−β, β] exactly
 (W(A)'s projections ARE the extreme eigenvalues of H and S/i).
 
 Reference context: like the Leja module this is "beyond" layer — the
-reference's non-Hermitian action is Arnoldi (src/arnoldi.jl:285-364); on
-TPU the reduction-free recurrence is the speed-of-light execution shape
-(cf. models/chebyshev.py and BENCHMARKS.md).
+reference's non-Hermitian action is Arnoldi (src/arnoldi.jl:285-364); the
+reduction-free recurrence needs no per-step inner products
+(cf. models/chebyshev.py).
 """
 
 from __future__ import annotations
@@ -231,47 +231,6 @@ def _faber_apply(op, b, a, center, inv_gamma, rho, m: int, q: int):
     return ws[0]
 
 
-def _faber_rows(a_col, c, inv_gamma, rho):
-    """(m, 4) per-step scalars of the Faber form for the fused plane
-    sweep (ops/kernels/lanczos_fused.recurrence_apply_fused):
-    g_{k+1} = inv_γ·(A − c)·g_k − ρ·g_{k−1}, w += a_k·g_k — with the
-    k = 1 step's cc = −2ρ carrying the g₀ = 2b half-weight."""
-    m = len(a_col)
-    cc = np.full(m, -rho)
-    cc[0] = 0.0
-    if m > 1:
-        cc[1] = -2.0 * rho
-    return np.stack([np.full(m, inv_gamma), np.full(m, -inv_gamma * c),
-                     cc, np.asarray(a_col)], axis=1)
-
-
-def _apply_fused_faber(op, b, A_coeffs, c, inv_gamma, rho, q: int,
-                       interpret: bool = False, apply=None):
-    """Engine twin of ``_faber_apply`` (real coefficients only):
-    1-D coefficients → q exact substeps; 2-D (m, p) → one pass per
-    coefficient column, stacked. ``apply`` is a recurrence engine
-    (ops/kernels/dispatch; default plane sweep)."""
-    if apply is None:
-        from ..ops.kernels.lanczos_fused import recurrence_apply_fused
-        apply = recurrence_apply_fused
-
-    b = jnp.asarray(b)
-    A_coeffs = np.asarray(A_coeffs)
-    if A_coeffs.ndim == 1:
-        rows = jnp.asarray(_faber_rows(A_coeffs, c, inv_gamma, rho),
-                           b.dtype)
-        w = b
-        for _ in range(q):
-            w = apply(op, w, rows, interpret=interpret)
-        return w
-    cols = []
-    for j in range(A_coeffs.shape[1]):
-        rows = jnp.asarray(_faber_rows(A_coeffs[:, j], c, inv_gamma, rho),
-                           b.dtype)
-        cols.append(apply(op, b, rows, interpret=interpret))
-    return jnp.stack(cols, axis=-1)
-
-
 def _resolve_ellipse(op, ellipse):
     if ellipse is not None:
         c, alpha, beta = (float(ellipse[0]), float(ellipse[1]),
@@ -296,8 +255,7 @@ def _probe_degree_faber(z: float, tol: float) -> int:
 
 
 def expv_faber(t, A, b, *, ellipse=None, tol: float = 1e-7,
-               m: int | None = None, max_z: float = 512.0,
-               fused: bool | None = None):
+               m: int | None = None, max_z: float = 512.0):
     """``exp(tA) b`` by a Faber series on the field-of-values ellipse —
     single pass per substep, NO inner products, non-Hermitian allowed,
     and (unlike ``expv_leja``) no basis-conditioning degree cap: the
@@ -322,17 +280,11 @@ def expv_faber(t, A, b, *, ellipse=None, tol: float = 1e-7,
     a, c, gamma, rho, q, m_used, log_sup = setup
     if a is None:                       # A ≈ cI (c already resolved)
         return (jnp.exp(jnp.asarray(float(t) * c, b.dtype)) * b)
-    from .leja import _fused_poly_ok
-    eng = None if np.iscomplexobj(a) else _fused_poly_ok(op, b.dtype, fused)
-    if eng is not None:
-        out = _apply_fused_faber(op, b, a[:m_used], c, 1.0 / gamma,
-                                 rho, q, apply=eng)
-    else:
-        cdt = (jnp.result_type(b.dtype, jnp.complex64)
-               if np.iscomplexobj(a) or np.iscomplexobj(b)
-               else jnp.result_type(b.dtype))
-        aj = jnp.asarray(a[:m_used], cdt)
-        out = _faber_apply(op, b, aj, c, 1.0 / gamma, rho, m_used, q)
+    cdt = (jnp.result_type(b.dtype, jnp.complex64)
+           if np.iscomplexobj(a) or np.iscomplexobj(b)
+           else jnp.result_type(b.dtype))
+    aj = jnp.asarray(a[:m_used], cdt)
+    out = _faber_apply(op, b, aj, c, 1.0 / gamma, rho, m_used, q)
     # real input + real operator: exp(tA)b is real; drop the series'
     # roundoff-level imaginary dust only when the math says it is dust
     if not jnp.iscomplexobj(b) and jnp.iscomplexobj(out):
@@ -411,8 +363,7 @@ def _check_finite_faber(U, what: str, log_bound: float | None = None):
 
 
 def phiv_faber(t, A, b, k: int, *, ellipse=None, tol: float = 1e-7,
-               m: int | None = None, max_z: float = 512.0,
-               fused: bool | None = None):
+               m: int | None = None, max_z: float = 512.0):
     """``[φ_0(tA)b … φ_k(tA)b]`` (n, k+1) by Faber series — all orders in
     one inner-product-free pass (coefficients of every φ_j share the
     recurrence vectors; cf. ``phiv_leja``). φ actions have no exact
@@ -454,14 +405,8 @@ def phiv_faber(t, A, b, k: int, *, ellipse=None, tol: float = 1e-7,
         cdt = jnp.result_type(b.dtype)
     else:
         cdt = jnp.result_type(b.dtype, jnp.complex64)
-    from .leja import _fused_poly_ok
-    eng = None if np.iscomplexobj(D) else _fused_poly_ok(op, b.dtype, fused)
-    if eng is not None:
-        W = _apply_fused_faber(op, b, D[:m_used], c, 1.0 / gamma, rho, 1,
-                               apply=eng)
-    else:
-        Dj = jnp.asarray(D[:m_used], cdt)
-        W = _faber_apply(op, b, Dj, c, 1.0 / gamma, rho, m_used, 1)
+    Dj = jnp.asarray(D[:m_used], cdt)
+    W = _faber_apply(op, b, Dj, c, 1.0 / gamma, rho, m_used, 1)
     if not jnp.iscomplexobj(b) and jnp.iscomplexobj(W):
         W = jnp.real(W).astype(b.dtype)
     bnorm = float(jnp.linalg.norm(b))
@@ -523,30 +468,9 @@ def _nw_faber_scan(op, u0, B, D, center, inv_gamma, rho, t0, tau,
     return u
 
 
-def _nw_fused_substep_faber(op, u, B, tcur, D, c, inv_gamma, rho, p: int,
-                            interpret: bool = False, apply=None):
-    """One NW substep through a Pallas recurrence engine (cf.
-    leja._nw_fused_substep): each combination column runs an independent
-    single-vector Faber pass with its coefficient column D[:, j]."""
-    from .leja import _combo_cols
-
-    if apply is None:
-        from ..ops.kernels.lanczos_fused import recurrence_apply_fused
-        apply = recurrence_apply_fused
-    cols = _combo_cols(u, B, jnp.asarray(tcur, u.dtype), p)
-    out = None
-    for j in range(p + 1):
-        rows = jnp.asarray(_faber_rows(D[:, j], c, inv_gamma, rho),
-                           u.dtype)
-        wj = apply(op, cols[j], rows, interpret=interpret)
-        out = wj if out is None else out + wj
-    return out
-
-
 def phiv_timestep_faber(ts, A, B, *, ellipse=None, tol: float = 1e-7,
                         max_z: float = 512.0,
-                        max_degree: int | None = None,
-                        fused: bool | None = None):
+                        max_degree: int | None = None):
     """u(t) = Σ_j t^j φ_j(tA) b_j at snapshot times ``ts`` for
     NON-Hermitian A — the substepped direct φ-combination of
     ``phiv_timestep_leja`` with the Faber ellipse basis, which removes
@@ -580,9 +504,7 @@ def phiv_timestep_faber(ts, A, B, *, ellipse=None, tol: float = 1e-7,
         return U[:, 0] if scalar_ts else U
 
     import math as _math
-    from .leja import _fused_poly_ok
     Bnorms = [float(jnp.linalg.norm(B[:, j])) for j in range(p + 1)]
-    use_fused = _fused_poly_ok(op, B.dtype, fused)
 
     def march(snaps, u0):
         u = u0
@@ -632,22 +554,12 @@ def phiv_timestep_faber(ts, A, B, *, ellipse=None, tol: float = 1e-7,
             if abs(np.imag(Dk)).max() <= 1e-12 * max(
                     np.abs(Dk).max(), 1e-300):
                 Dk = np.real(Dk)
-            if use_fused and not np.iscomplexobj(Dk):
-                u_next = u
-                tcur = t_prev
-                for _ in range(q):
-                    u_next = _nw_fused_substep_faber(
-                        op, u_next, B, tcur, Dk, c, 1.0 / gamma, rho, p,
-                        apply=use_fused)
-                    tcur += tau
-            else:
-                Dj = jnp.asarray(Dk, jnp.result_type(u.dtype, Dk.dtype)
-                                 if np.iscomplexobj(Dk)
-                                 else jnp.result_type(u.dtype))
-                u_next = _nw_faber_scan(op, u, B, Dj, c, 1.0 / gamma, rho,
-                                        jnp.asarray(t_prev),
-                                        jnp.asarray(tau),
-                                        p=p, m=m_used, q=q)
+            Dj = jnp.asarray(Dk, jnp.result_type(u.dtype, Dk.dtype)
+                             if np.iscomplexobj(Dk)
+                             else jnp.result_type(u.dtype))
+            u_next = _nw_faber_scan(op, u, B, Dj, c, 1.0 / gamma, rho,
+                                    jnp.asarray(t_prev), jnp.asarray(tau),
+                                    p=p, m=m_used, q=q)
             if jnp.iscomplexobj(u_next) and not jnp.iscomplexobj(u):
                 u_next = jnp.real(u_next).astype(u.dtype)
             u = u_next

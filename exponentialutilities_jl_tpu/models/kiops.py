@@ -8,7 +8,7 @@ via ONE (n+p)-augmented Krylov subspace per substep instead of per-order φ
 evaluations, with joint (τ, m) adaptation between substeps
 (reference: src/kiops.jl:50-319).
 
-TPU mapping: the augmented operator
+Device mapping: the augmented operator
 
     Ã = [[A, B̃], [0, K]]   (B̃ = ν·[u_p … u_1], K the p×p up-shift)
 
@@ -44,7 +44,7 @@ from ..utils.linop import LinearOperator, aslinearoperator
 @functools.partial(jax.jit, static_argnames=("n",))
 @mxu_full_precision
 def _combine_cols(beta, col, V, n: int):
-    """β · colᵀ V[:, :n] as one jitted MXU combination."""
+    """β · colᵀ V[:, :n] as one jitted matmul combination."""
     return beta.astype(col.dtype) * (col @ V[:, :n].astype(col.dtype))
 
 __all__ = ["kiops", "KiopsStats", "AugmentedOperator"]
@@ -333,7 +333,7 @@ def _kiops_phantom_device(Ks, tau_sgn, n: int):
 
 def kiops(tstops, A, u, *, tol: float = 1e-7, mmin: int = 10, mmax: int = 128,
           m: int | None = None, iop: int = 2, task1: bool = False,
-          return_stats: bool = True, reduced: str | None = None,
+          return_stats: bool = True, reduced: str = "device",
           two_pass: bool = False):
     """KIOPS: linear combination of φ functions at times ``tstops``
     (reference: ``kiops``, src/kiops.jl:50-274).
@@ -362,9 +362,6 @@ def kiops(tstops, A, u, *, tol: float = 1e-7, mmin: int = 10, mmax: int = 128,
         if return_stats:
             return post(out[0]), out[1]
         return post(out)
-    if reduced is None:
-        from ..ops.host_reduced import reduced_default
-        reduced = reduced_default()
     scalar_t = np.ndim(tstops) == 0
     tau_out = np.atleast_1d(np.asarray(tstops, dtype=np.float64))
     u = jnp.asarray(u)

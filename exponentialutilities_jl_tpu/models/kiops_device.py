@@ -14,8 +14,9 @@ Differences from the host driver, by design:
   cost heuristic requesting the change; the basis is REBUILT at the new
   bucket (the host driver's ``arnoldi_extend`` resume saves a few matvecs
   but would force dynamic shapes).
-* the reduced exponentials default to the solver-free ``expm_taylor``
-  engine on TPU + f64 (no LU lowering), like the NW device driver.
+* the reduced exponentials use ``expm_higham2005`` by default, or the
+  solver-free ``expm_taylor`` with ``expm_method="taylor"``, like the NW
+  device driver.
 """
 
 from __future__ import annotations
@@ -250,7 +251,7 @@ def _kiops_device(aug, ts, state_tup, tau_end, tol, sgn, mu,
 
 def kiops_device(ts, A, u, *, m: int = 10, tol: float = 1e-7, iop: int = 2,
                  mmin: int = 10, mmax: int = 128,
-                 expm_method: str = "auto", task1: bool = False,
+                 expm_method: str = "higham2005", task1: bool = False,
                  max_steps: int = 10_000, return_stats: bool = True):
     """KIOPS with the whole adaptive loop resident on device (module doc).
 
@@ -272,11 +273,6 @@ def kiops_device(ts, A, u, *, m: int = 10, tol: float = 1e-7, iop: int = 2,
     sgn = float(np.sign(tau_out[-1])) or 1.0
     tau_end = float(abs(tau_out[-1]))
     nt = len(tau_out)
-    if expm_method == "auto":
-        expm_method = ("taylor"
-                       if (jnp.finfo(u.dtype).bits >= 64
-                           and jax.default_backend() == "tpu")
-                       else "higham2005")
 
     # Augmented-column normalization (reference: src/kiops.jl:87-99).
     norm_u = float(jnp.sum(jnp.abs(u[:, 1:])))

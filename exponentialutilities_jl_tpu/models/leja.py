@@ -33,8 +33,8 @@ q substeps share one divided-difference table and run as a
 
 Reference context: the reference has no polynomial-interpolation
 action (its non-Hermitian path is Arnoldi, src/arnoldi.jl); this is the
-"beyond" layer — on TPU the absence of per-step reductions is worth
-more than the Krylov basis' optimality.
+"beyond" layer — the absence of per-step reductions can be worth more
+than the Krylov basis' optimality.
 """
 
 from __future__ import annotations
@@ -207,49 +207,6 @@ def _leja_apply(op, b, d, xi, center, inv_s, m: int, q: int):
     return ws[0]
 
 
-def _fused_poly_ok(op, dtype, fused: bool | None):
-    """The Pallas recurrence engine for this operator (or None → XLA
-    scan): VMEM-resident for 1-D constant stencils, sliding-plane sweep
-    for 2-D/3-D boxes (ASYMMETRIC constants included — the advection–
-    diffusion class), row-tiled sweeps for giant grids. See
-    ops/kernels/dispatch.recurrence_engine."""
-    from ..ops.kernels.dispatch import recurrence_engine
-    return recurrence_engine(op, dtype, fused)
-
-
-def _newton_rows(d, xi, c, inv_s):
-    """(m, 4) per-step scalars of the Newton form for the fused sweep:
-    ω_{k+1} = inv_s·(A − c)ω_k − ξ_k·ω_k, w += d_k·ω_k."""
-    m = len(xi)
-    return np.stack([np.full(m, inv_s), -inv_s * c - np.asarray(xi),
-                     np.zeros(m), np.asarray(d)], axis=1)
-
-
-def _apply_fused_newton(op, b, D, xi, c, inv_s, q: int,
-                        interpret: bool = False, apply=None):
-    """Engine twin of ``_leja_apply``: 1-D D → q exact substeps;
-    2-D D (m, p) → one pass per coefficient column, summed (each column
-    shares the SAME ω_k chain coefficients, so each runs independently).
-    ``apply`` is a recurrence engine (ops/kernels/dispatch)."""
-    if apply is None:
-        from ..ops.kernels.lanczos_fused import recurrence_apply_fused
-        apply = recurrence_apply_fused
-
-    b = jnp.asarray(b)
-    D = np.asarray(D)
-    if D.ndim == 1:
-        rows = jnp.asarray(_newton_rows(D, xi, c, inv_s), b.dtype)
-        w = b
-        for _ in range(q):
-            w = apply(op, w, rows, interpret=interpret)
-        return w
-    cols = []
-    for j in range(D.shape[1]):
-        rows = jnp.asarray(_newton_rows(D[:, j], xi, c, inv_s), b.dtype)
-        cols.append(apply(op, b, rows, interpret=interpret))
-    return jnp.stack(cols, axis=-1)
-
-
 def _leja_expv_setup(op, t, interval, tol, m, max_z):
     """Host-side coefficient setup shared by :func:`expv_leja` and the
     sharded twin (parallel/poly.py). Returns ``(d, xi, c, s, q)`` with
@@ -278,8 +235,7 @@ def _leja_expv_setup(op, t, interval, tol, m, max_z):
 
 
 def expv_leja(t, A, b, *, interval=None, tol: float = 1e-7,
-              m: int | None = None, max_z: float = 40.0,
-              fused: bool | None = None):
+              m: int | None = None, max_z: float = 40.0):
     """``exp(tA) b`` by Newton interpolation at real Leja points —
     single pass per substep, NO inner products, non-Hermitian allowed
     (module docstring; for Hermitian operators prefer
@@ -299,10 +255,6 @@ def expv_leja(t, A, b, *, interval=None, tol: float = 1e-7,
     if d is None:                       # A ≈ cI (real-shift only)
         return (jnp.exp(jnp.asarray(float(t) * c, b.dtype)) * b)
     m_used = len(d)
-    eng = _fused_poly_ok(op, b.dtype, fused)
-    if eng is not None:
-        return _apply_fused_newton(op, b, d[:m_used], xi[:m_used],
-                                   c, 1.0 / s, q, apply=eng)
     dj = jnp.asarray(d[:m_used], jnp.result_type(b.dtype))
     xj = jnp.asarray(xi[:m_used], jnp.finfo(b.dtype).dtype)
     return _leja_apply(op, b, dj, xj, c, 1.0 / s, m_used, q)
@@ -331,8 +283,7 @@ def _phi_divided_differences(t, c, s, xi, k: int):
 
 
 def phiv_leja(t, A, b, k: int, *, interval=None, tol: float = 1e-7,
-              m: int | None = None, max_z: float = 40.0,
-              fused: bool | None = None):
+              m: int | None = None, max_z: float = 40.0):
     """``[φ_0(tA)b … φ_k(tA)b]`` (n, k+1) by Newton interpolation at
     real Leja points — ALL orders in one inner-product-free pass,
     non-Hermitian allowed (cf. ``phiv_chebyshev`` for the Hermitian
@@ -363,10 +314,6 @@ def phiv_leja(t, A, b, k: int, *, interval=None, tol: float = 1e-7,
     D = _phi_divided_differences(tf, c, s, xi, k)       # (m, k+1)
     m_used = _truncate_dd(np.abs(D).max(axis=1) * sup, tol, m_probe, m,
                           f"phiv_leja (z = {z:.1f})")
-    eng = _fused_poly_ok(op, b.dtype, fused)
-    if eng is not None:
-        return _apply_fused_newton(op, b, D[:m_used], xi[:m_used],
-                                   c, 1.0 / s, 1, apply=eng)
     Dj = jnp.asarray(D[:m_used], jnp.result_type(b.dtype))
     xj = jnp.asarray(xi[:m_used], jnp.finfo(b.dtype).dtype)
     return _leja_apply(op, b, Dj, xj, c, 1.0 / s, m_used, 1)
@@ -424,44 +371,8 @@ def _nw_leja_scan(op, u0, B, D, xi, center, inv_s, t0, tau,
     return u
 
 
-@functools.partial(jax.jit, static_argnames=("p",))
-def _combo_cols(u, B, tcur, p: int):
-    """Stacked [u, v_1(t) … v_p(t)] columns of the NW substep combination
-    (v_j(t) = Σ_l t^l/l!·b_{j+l}) — the host-looped fused substep's small
-    XLA prelude."""
-    import math as _math
-
-    cols = [u]
-    for j in range(1, p + 1):
-        vj = jnp.zeros_like(u)
-        for l in range(0, p - j + 1):
-            vj = vj + ((tcur ** l) / _math.factorial(l)) * B[:, j + l]
-        cols.append(vj)
-    return jnp.stack(cols, axis=0)
-
-
-def _nw_fused_substep(op, u, B, tcur, D, xi, c, inv_s, p: int,
-                      interpret: bool = False, apply=None):
-    """One NW substep through a Pallas recurrence engine: the (p+1)
-    combination columns each run an independent single-vector Newton
-    pass (same ω_k chain scalars, different accumulation coefficients
-    D[:, j]) and sum."""
-    if apply is None:
-        from ..ops.kernels.lanczos_fused import recurrence_apply_fused
-        apply = recurrence_apply_fused
-
-    cols = _combo_cols(u, B, jnp.asarray(tcur, u.dtype), p)
-    out = None
-    for j in range(p + 1):
-        rows = jnp.asarray(_newton_rows(D[:, j], xi, c, inv_s), u.dtype)
-        wj = apply(op, cols[j], rows, interpret=interpret)
-        out = wj if out is None else out + wj
-    return out
-
-
 def phiv_timestep_leja(ts, A, B, *, interval=None, tol: float = 1e-7,
-                       max_z: float = 40.0, max_degree: int | None = None,
-                       fused: bool | None = None):
+                       max_z: float = 40.0, max_degree: int | None = None):
     """u(t) = Σ_j t^j φ_j(tA) b_j at snapshot times ``ts`` for
     NON-Hermitian A (real-interval field-of-values class) — the
     Niesen–Wright substepped combination with the φ_p inner action as a
@@ -510,8 +421,6 @@ def phiv_timestep_leja(ts, A, B, *, interval=None, tol: float = 1e-7,
         U = jnp.stack(cols, axis=-1)
         return U[:, 0] if scalar_ts else U
 
-    use_fused = _fused_poly_ok(op, B.dtype, fused)
-
     def march(snaps, u0):
         """Evolve from t = 0 through the (monotone-away-from-zero)
         snapshot list; returns the per-snapshot states."""
@@ -558,20 +467,11 @@ def phiv_timestep_leja(ts, A, B, *, interval=None, tol: float = 1e-7,
                 m_used = m_probe
             if max_degree is not None:
                 m_used = min(m_used, max_degree)
-            if use_fused:
-                # host-looped substeps, each a (p+1)-column fused pass
-                tcur = t_prev
-                for _ in range(q):
-                    u = _nw_fused_substep(op, u, B, tcur, D[:m_used],
-                                          xi[:m_used], c, 1.0 / s, p,
-                                          apply=use_fused)
-                    tcur += tau
-            else:
-                Dj = jnp.asarray(D[:m_used], jnp.result_type(u.dtype))
-                xj = jnp.asarray(xi[:m_used], jnp.finfo(u.dtype).dtype)
-                u = _nw_leja_scan(op, u, B, Dj, xj, c, 1.0 / s,
-                                  jnp.asarray(t_prev), jnp.asarray(tau),
-                                  p=p, m=m_used, q=q)
+            Dj = jnp.asarray(D[:m_used], jnp.result_type(u.dtype))
+            xj = jnp.asarray(xi[:m_used], jnp.finfo(u.dtype).dtype)
+            u = _nw_leja_scan(op, u, B, Dj, xj, c, 1.0 / s,
+                              jnp.asarray(t_prev), jnp.asarray(tau),
+                              p=p, m=m_used, q=q)
             outs.append(u)
             t_prev = float(t_snap)
         return outs

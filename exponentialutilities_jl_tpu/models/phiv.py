@@ -2,7 +2,7 @@
 
 Capability parity with the reference's phiv layer (reference:
 src/krylov_phiv.jl:471-599): reduce to ``phiv_dense`` on the masked t·H_m
-(the (m+k)² augmented-matrix exponential), combine with the basis on the MXU,
+(the (m+k)² augmented-matrix exponential), combine with the basis by a matmul,
 optionally apply the Niesen–Wright last-Arnoldi-vector correction (formula
 (10) of arXiv:0907.4631) and return the a-posteriori error estimate
 ``|β · h_{m+1,m} · t · C2[end, end]|`` used by the adaptive drivers.
@@ -78,8 +78,7 @@ def phiv_from_basis(t, Ks: KrylovBasis, k: int, *, correct: bool = False,
     w: (n, k+1) matrix of φ_j(tA)b columns. err: scalar error estimate for
     φ_{k-1} (the reference's adaptive-driver signal). ``reduced="host"``
     stages the small augmented exponential on the host in full f64 between
-    the jitted device programs — required for f64 on TPU
-    (ops/host_reduced.py).
+    the jitted device programs (ops/host_reduced.py).
     """
     if reduced == "host":
         from ..ops.host_reduced import host_phiv_e1
@@ -117,7 +116,7 @@ def make_phiv(op, k: int, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
 
 def phiv(t, A, b, k: int, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
          correct: bool = False, errest: bool = False, reorth: bool = True,
-         hermitian: bool | None = None, reduced: str | None = None,
+         hermitian: bool | None = None, reduced: str = "device",
          two_pass: bool = False, differentiable: bool = False):
     """Compute ``[φ_0(tA)b … φ_k(tA)b]`` with a Krylov approximation
     (reference: ``phiv``, src/krylov_phiv.jl:519-531). ``k ≥ 1``.
@@ -142,21 +141,7 @@ def phiv(t, A, b, k: int, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
             return (post(out[0]),) + out[1:]
         return post(out)
     m = min(m, op.shape[0])
-    if reduced is None:
-        from ..ops.host_reduced import reduced_default
-        reduced = reduced_default()
     if two_pass:
-        from ..ops.kernels.resident import (phiv_two_pass_resident,
-                                            resident_supported)
-        herm_tp = op.is_hermitian if hermitian is None else hermitian
-        if (herm_tp and resident_supported(op)
-                and b.dtype == jnp.float32 and k + 1 <= 8
-                and not jnp.iscomplexobj(jnp.asarray(t))
-                and jax.default_backend() == "tpu"):
-            # 1-D small n: both passes VMEM-resident, every φ order off
-            # one regenerated chain (ops/kernels/resident.py)
-            w, err = phiv_two_pass_resident(op, b, t, m, k, tol=tol)
-            return (w, err) if errest else w
         herm = op.is_hermitian if hermitian is None else hermitian
         if not herm:
             raise NotImplementedError(
@@ -175,8 +160,7 @@ def phiv(t, A, b, k: int, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
 
 def _phiv_two_pass_host(op, b, t, m: int, k: int):
     """Two-pass φ-actions with the reduced augmented exponential
-    host-staged in f64 (device f64 expm/eigh are unavailable/f32-limited
-    on TPU)."""
+    host-staged in f64 (``reduced="host"``)."""
     import numpy as np
 
     from ..ops.host_reduced import host_phiv_e1

@@ -293,7 +293,7 @@ def phiv_timestep(ts, A, B, *, tau: float = 0.0, m: int = 10, tol: float = 1e-7,
                   adaptive: bool = False, delta: float = 1.2,
                   gamma: float = 0.8, nnz: int = 0, m_max: int = 256,
                   hermitian: bool | None = None, verbose: bool = False,
-                  return_stats: bool = False, reduced: str | None = None,
+                  return_stats: bool = False, reduced: str = "device",
                   two_pass: bool = False):
     """Evaluate u = Σ_j t^j φ_j(tA) b_j at snapshot times ``ts`` by
     Niesen–Wright internal substepping
@@ -335,9 +335,6 @@ def phiv_timestep(ts, A, B, *, tau: float = 0.0, m: int = 10, tol: float = 1e-7,
         if isinstance(out, tuple):
             return (post(out[0]),) + out[1:]
         return post(out)
-    if reduced is None:
-        from ..ops.host_reduced import reduced_default
-        reduced = reduced_default()
     scalar_ts = np.ndim(ts) == 0
     ts_arr = np.atleast_1d(np.asarray(ts, dtype=np.float64))
     ts_sorted = np.sort(ts_arr)

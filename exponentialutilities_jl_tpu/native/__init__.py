@@ -262,7 +262,7 @@ def sell_pack_csr(A, window: int = 1024):
     (vals (T,8,128), lidx (T,8,128) int32, group_ptr (G+1) int32,
     win_row (G) int32) or None when the native library is unavailable.
     Raises ValueError when a group's columns exceed its window (same
-    contract as the numpy packer in ops/kernels/sell.py)."""
+    contract as the numpy packer in ops/sell.py)."""
     lib = load_native()
     if lib is None:
         return None
@@ -301,7 +301,7 @@ def sell_pack_csr(A, window: int = 1024):
 
 def sell_rowsel_pack_csr(A, window: int = 2048):
     """Native rowsel SELL pack (per-sublane window-row binding; see
-    ops/kernels/sell.py). Returns (vals, lidx, group_ptr, win_row, cap)
+    ops/sell.py). Returns (vals, lidx, group_ptr, win_row, cap)
     or None without the native library."""
     lib = load_native()
     if lib is None:

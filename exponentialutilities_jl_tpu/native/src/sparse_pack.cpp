@@ -1,16 +1,15 @@
-// Native host-side sparse preprocessing for the TPU operator containers.
+// Native host-side sparse preprocessing for the operator containers.
 //
-// The TPU compute path is JAX/XLA/Pallas; this library is the runtime
+// The device compute path is JAX/XLA; this library is the runtime
 // around it: converting host CSR/BSR matrices into the fixed-width padded
-// layouts the device kernels consume (ops/sparse.py), bandwidth-reducing
+// layouts the device SpMVs consume (ops/sparse.py), bandwidth-reducing
 // RCM reordering, diagonal (banded/stencil) extraction, and nnz-balanced
 // row partitioning for the mesh. These are O(nnz) pointer-chasing loops —
 // the wrong shape for numpy and far too slow as Python loops at the
 // 10M-row scale the benchmarks target (BASELINE config #5).
 //
 // The reference has no native source of its own (its native boundary is
-// LAPACK ccalls, SURVEY.md §2); this component is new TPU-framework
-// runtime work.
+// LAPACK ccalls, SURVEY.md §2); this component is new runtime work.
 //
 // ABI: plain C, int64_t sizes/indptr, int32_t column indices, explicit
 // f32/f64 instantiations. All buffers are caller-allocated (numpy).
@@ -267,7 +266,7 @@ void balance_partition(int64_t n, int64_t p, const int64_t* indptr,
 }  // extern "C"
 
 // ------------------------------------------------------------- SELL pack
-// Plan + fill for the SELL-window layout (ops/kernels/sell.py): rows
+// Plan + fill for the SELL-window layout (ops/sell.py): rows
 // grouped in 128s (row-per-lane), v = ceil(maxdeg/8) tiles of (8, 128)
 // per group, per-group aligned x-window. Two-call protocol so the caller
 // owns all allocations:
@@ -358,9 +357,7 @@ void sell_fill_f64(int64_t n, const int64_t* indptr, const int32_t* indices,
 // ---------------------------------------------------- SELL rowsel pack
 // Per-sublane window-row binding: every (tile, sublane) is assigned ONE
 // window row qrow; slot (s, lane) may hold any nnz of row `lane` whose
-// window row equals qrow_s. The kernel then gathers a tile with TWO
-// dynamic_gather ops (cross-sublane table build + lane gather) — no
-// rolls, no per-j selects. qrow is stored in the index high bits
+// window row equals qrow_s. qrow is stored in the index high bits
 // (li = qrow<<7 | r), so no extra metadata stream exists.
 //
 // Greedy multiset choice per tile: repeatedly pick the window row with

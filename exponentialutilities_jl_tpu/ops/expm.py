@@ -1,4 +1,4 @@
-"""Dense matrix exponential — TPU-native scaling-and-squaring.
+"""Dense matrix exponential — scaling-and-squaring for XLA.
 
 Capability parity with the reference's dense-exp layer (reference:
 src/exp.jl:49-140, src/exp_baseexp.jl, src/exp_noalloc.jl, src/exp_generic.jl)
@@ -110,7 +110,7 @@ def _pade_uv_13(A, A2, A4, A6):
     b = _B13
     I = jnp.eye(A.shape[-1], dtype=A.dtype)
     # Higham's economical degree-13 evaluation: two nested polynomials sharing
-    # A2/A4/A6 so only 6 GEMMs total (MXU-dense, no small ops).
+    # A2/A4/A6 so only 6 GEMMs total (GEMM-dense, no small ops).
     W1 = b[13] * A6 + b[11] * A4 + b[9] * A2
     W2 = b[7] * A6 + b[5] * A4 + b[3] * A2 + b[1] * I
     Z1 = b[12] * A6 + b[10] * A4 + b[8] * A2
@@ -164,11 +164,11 @@ def _balance_window(A, ilo, ihi, *, sweeps: int = 5):
 def balance_matrix(A, *, sweeps: int = 5):
     """Power-of-two Osborne balancing: returns ``(Ab, d)`` with
     ``Ab = D⁻¹ A D``, ``D = diag(d)``, d exact powers of two (no rounding
-    error in the similarity). TPU-native replacement for the SCALING
+    error in the similarity). A vectorized replacement for the SCALING
     phase of the reference's LAPACK ``?gebal`` ccall
     (src/exp_baseexp.jl:10-36): a fixed number of vectorized
     Jacobi-style sweeps instead of the sequential per-column LAPACK
-    loop, so the whole balance is a handful of fused VPU ops. For the
+    loop, so the whole balance is a handful of fused elementwise ops. For the
     full gebal (permutation + scaling) see :func:`gebal`.
     """
     A = jnp.asarray(A)
@@ -321,11 +321,9 @@ def expm_higham2005(A, *, max_squarings: int = 32, balance: bool = False,
 
     BATCHED serving note: under ``vmap`` the degree ``lax.switch``
     computes ALL branches and selects, and the dynamic squaring count
-    becomes a batch-max masked loop — measured 0.6–5 TF/s at
-    (512, 128²)–(32, 512²) on a v5e vs 19–36 TF/s (71–116% of the
-    measured matmul roofline) for ``expm_taylor``, whose structure is
-    static. Prefer ``expm_taylor`` for fleets of dense exponentials
-    (benchmarks/bench_dense_mfu.py).
+    becomes a batch-max masked loop; ``expm_taylor``'s structure is
+    static. For fleets of dense exponentials compare both with
+    benchmarks/bench_dense_mfu.py.
     """
     A = jnp.asarray(A)
     if balance:
@@ -374,7 +372,7 @@ def expm_higham2005_batched(A, *, max_squarings: int = 32,
                             balance: bool = False,
                             differentiable: bool = False):
     """Batch-uniform Higham-2005 ``exp(A)`` for a (..., n, n) stack —
-    the MXU-rate serving form (VERDICT r4 #3).
+    the batched serving form (VERDICT r4 #3).
 
     Under ``vmap``, ``expm_higham2005``'s per-element degree
     ``lax.switch`` evaluates ALL branches and its squaring loop runs to
@@ -393,7 +391,7 @@ def expm_higham2005_batched(A, *, max_squarings: int = 32,
 
     Reference analogue: the 13 straight-line generated kernels exist
     precisely to make dense exp cheap (src/exp_noalloc.jl:123-129);
-    on TPU "cheap" means batched GEMMs with no branch divergence.
+    here "cheap" means batched GEMMs with no branch divergence.
     """
     A = jnp.asarray(A)
     if A.ndim < 3:
@@ -509,38 +507,16 @@ def expm_generic(A, *, order: int | None = None, max_squarings: int = 48,
 def expm_diagonalization(A, *, is_hermitian: bool = False):
     """exp(A) via eigendecomposition (reference: src/exp.jl:75-130).
 
-    Hermitian input uses ``eigh`` on device (every backend). General
-    (non-Hermitian) input needs ``eig``, which XLA provides ONLY on CPU
-    — on TPU/GPU backends the general branch HOST-STAGES the
-    eigendecomposition in LAPACK f64 (the same between-jits staging as
-    ops/host_reduced.py; also the accuracy-preferred route, since a
-    device f32 eig would not exist at any precision). Inside a trace
-    (jit/vmap) on a non-CPU backend the general branch therefore raises:
-    use ``expm_higham2005``/``expm_taylor`` there, which lower
-    everywhere.
+    Hermitian input uses ``eigh``; general (non-Hermitian) input uses
+    ``eig``, which XLA lowers on the CPU (LAPACK) and on CUDA
+    (cuSOLVER), so both branches run under ``jit``. Defective input has
+    no eigenbasis: ``method='schur'`` (funm's Schur–Parlett,
+    ops/funm.py) covers every general matrix.
     """
     A = jnp.asarray(A)
     if is_hermitian:
         w, Q = jnp.linalg.eigh(A)
         return (Q * jnp.exp(w)) @ Q.conj().T
-    if jax.default_backend() != "cpu":
-        if isinstance(A, jax.core.Tracer):
-            raise NotImplementedError(
-                "expm_diagonalization(general) inside jit is CPU-only: "
-                "XLA lowers eig only on CPU and the host staging cannot "
-                "run under a trace — use method='higham2005' or "
-                "'taylor' inside jitted code on this backend; OUTSIDE "
-                "the trace, method='schur' (funm's Schur–Parlett) covers "
-                "every general matrix, including defective input where "
-                "eig does not exist (ops/funm.py)")
-        import numpy as np
-        Ah = np.asarray(A, np.complex128 if jnp.issubdtype(
-            A.dtype, jnp.complexfloating) else np.float64)
-        w, R = np.linalg.eig(Ah)
-        X = (R * np.exp(w)) @ np.linalg.inv(R)
-        if not jnp.issubdtype(A.dtype, jnp.complexfloating):
-            X = X.real
-        return jnp.asarray(X, A.dtype)
     w, R = jnp.linalg.eig(A)
     X = (R * jnp.exp(w)) @ jnp.linalg.inv(R)
     if not jnp.issubdtype(A.dtype, jnp.complexfloating):
@@ -562,12 +538,9 @@ def expm_taylor(A, *, order: int | None = None, max_squarings: int = 48,
     """Scaling-and-squaring with a Paterson–Stockmeyer TAYLOR kernel —
     solver-free ``exp(A)``.
 
-    No LU/solve and no eigendecomposition, so this path compiles at EVERY
-    dtype/platform combination — in particular f64 on TPU, where
-    ``jnp.linalg.solve`` does not lower. It is the reduced-exponential
-    engine of the device-resident adaptive drivers (models/nw_device.py):
-    the (m+k)² augmented exponentials run on-chip in f64 with no host
-    staging. Truncation: ‖A/2ˢ‖₁ ≤ 1 with order chosen so the series tail
+    No LU/solve and no eigendecomposition: only matrix products. It is
+    the ``expm_method="taylor"`` reduced-exponential engine of the
+    device-resident adaptive drivers (models/nw_device.py). Truncation: ‖A/2ˢ‖₁ ≤ 1 with order chosen so the series tail
     is below the dtype's unit roundoff (tail ≤ e/(M+1)! at θ = 1).
     """
     from .phi_dense import _ps_phi_taylor, _taylor_order
@@ -631,7 +604,7 @@ def expm(A, method: str = "higham2005", **kwargs):
         raise ValueError(
             f"unknown expm method {method!r}; expected one of {sorted(_METHODS)}")
     if method == "higham2005" and jnp.asarray(A).ndim > 2:
-        # stacked input → the batch-uniform MXU path (one Padé branch,
+        # stacked input → the batch-uniform path (one Padé branch,
         # unmasked batched squaring; see expm_higham2005_batched)
         return expm_higham2005_batched(A, **kwargs)
     return fn(A, **kwargs)

@@ -4,7 +4,7 @@ The reference's ``ExpMethodGeneric`` runs on ``BigFloat``/``Double64``
 eltypes (reference: src/exp_generic.jl:58-283; tested to ~1e-28 against
 a 300-bit BigFloat oracle, test/basictests.jl:136-174). JAX has no
 arbitrary-precision dtype — the platform ceiling is float64 — so this
-module provides the TPU-native equivalent of the ``Double64`` tier:
+module provides the JAX equivalent of the ``Double64`` tier:
 **double-double arithmetic** (each number an unevaluated sum hi + lo of
 two float64s, ≈106-bit significand), built from error-free
 transformations:
@@ -186,9 +186,8 @@ def dd_matmul(A: DD, B: DD) -> DD:
 
     Runs as a ``lax.scan`` over k (n sequential compensated rank-1
     updates). Intended for the small/medium dense matrices of the
-    high-precision use case — the point is the 106-bit result, not MXU
-    throughput (the MXU has no f64 unit anyway; on TPU this path is for
-    oracles, on CPU it is the Double64-tier production path)."""
+    high-precision use case — the point is the 106-bit result, not
+    throughput."""
     n = A.hi.shape[-1]
 
     def body(carry, k):

@@ -2,9 +2,9 @@
 
 The reference's ``exp_generic`` is type-generic through Julia's number
 tower and is tested at 300-bit BigFloat
-(/root/reference/src/exp_generic.jl:100-116,
-/root/reference/test/basictests.jl:205-231). On TPU every extended
-tier is built from error-free float transformations and the ladder
+(reference src/exp_generic.jl:100-116, test/basictests.jl:205-231).
+On the device every extended tier is built from error-free float
+transformations and the ladder
 deliberately ends at double-double (ops/expm_dd.py; rationale in
 docs/matrix_exponentials.md) — but the CAPABILITY itself maps exactly
 the way the reference implements it: arbitrary-precision arithmetic on

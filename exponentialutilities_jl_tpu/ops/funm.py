@@ -1,19 +1,17 @@
 """General matrix functions via the blocked Schur–Parlett algorithm.
 
-TPU-native availability of the reference's any-matrix diagonalization
-family (``ExpMethodDiagonalization``, reference src/exp.jl:75-130):
-``eigen!`` works for DIAGONALIZABLE input only and XLA lowers ``eig``
-on CPU only, so on TPU the general (non-Hermitian) method family needs
-a different engine. This module provides it: ``funm(A, f)`` computes
+The reference's any-matrix diagonalization family
+(``ExpMethodDiagonalization``, reference src/exp.jl:75-130) needs
+``eigen!``, which works for DIAGONALIZABLE input only, so the general
+(non-Hermitian, possibly defective) method family needs a different
+engine. This module provides it: ``funm(A, f)`` computes
 f(A) for ANY square matrix — non-normal, repeated-eigenvalue, even
 defective input where an eigendecomposition does not exist — via the
 Davies–Higham blocked Schur–Parlett algorithm (SIAM J. Matrix Anal.
 2003; also the engine behind MATLAB's ``funm``):
 
-  1. complex Schur form A = Z T Zᴴ (host LAPACK, c128 — the
-     accuracy-preferred route for reduced problems on TPU, see
-     ops/host_reduced.py; TPU has no eig/schur lowering at any
-     precision),
+  1. complex Schur form A = Z T Zᴴ (host LAPACK, c128: XLA lowers
+     ``schur`` on the CPU only),
   2. eigenvalue CLUSTERING: connected components of
      |λᵢ − λⱼ| ≤ delta, reordered into contiguous diagonal blocks by a
      LAPACK ``ztrexc`` swapping pass (well-separated blocks keep the
@@ -30,10 +28,10 @@ Davies–Higham blocked Schur–Parlett algorithm (SIAM J. Matrix Anal.
 
 CONTRACT (same between-jits staging as ``ops/host_reduced.host_phi``):
 this runs on the HOST between device programs — it cannot be called
-inside ``jax.jit`` on a non-CPU backend. Stage it: compute f(A) once
-outside the trace, pass the result in as data. For exp specifically,
-``expm(A, method="schur")`` routes here; inside jitted TPU code use
-``method="higham2005"``/``"taylor"``, which lower everywhere.
+inside ``jax.jit``. Stage it: compute f(A) once outside the trace, pass
+the result in as data. For exp specifically, ``expm(A, method="schur")``
+routes here; inside jitted code use ``method="higham2005"``/``"taylor"``
+(or ``"diagonalization"`` for diagonalizable input).
 """
 
 from __future__ import annotations
@@ -154,7 +152,7 @@ def _parlett_device(T, Fd, cross, denom, Z, iters: int):
     ((F N)_ab reads F_ac with c < b; (N F)_ab reads F_cb with c > a),
     so the iteration terminates at the EXACT Parlett solution in at
     most ~2n steps — no ztrsyl, no triangular solves, just two complex
-    GEMMs + one masked divide per step (MXU-shaped). The divides are
+    GEMMs + one masked divide per step. The divides are
     cross-cluster only (|λ_a − λ_b| > delta by the clustering
     invariant — the same separation ztrsyl relied on). The similarity
     undo Z F Zᴴ rides the same program, so ``funm`` costs ONE host
@@ -162,7 +160,7 @@ def _parlett_device(T, Fd, cross, denom, Z, iters: int):
     whole O(n³) recurrence through Python/LAPACK block loops.
 
     Complex arithmetic is split into (re, im) f64 pairs — four real
-    GEMMs per complex product — because TPU has no c128 GEMM lowering.
+    GEMMs per complex product.
     Returns (F_out = Z F Zᴴ, commutation residual ‖TF − FT‖_F) — the
     caller verifies the residual and falls back to the host recurrence
     if the fixed point has not closed (possible for extreme non-normal
@@ -380,8 +378,8 @@ def funm(A, f, **kwargs):
 
     if isinstance(A, jax.core.Tracer):
         raise NotImplementedError(
-            "funm is host-staged (Schur has no TPU lowering at any "
-            "precision): call it between jitted programs and pass the "
+            "funm is host-staged (XLA lowers Schur on the CPU only): "
+            "call it between jitted programs and pass the "
             "result in as data — the same contract as "
             "ops/host_reduced.host_phi")
     return funm_schur_parlett(A, f, **kwargs)

@@ -2,37 +2,24 @@
 
 The reference's Krylov design keeps the O(n) basis on the accelerator and
 the O(m²) reduced Hessenberg problem on host LAPACK
-(src/arnoldi.jl:293-296, src/krylov_phiv.jl:196-205). On TPU the same
-split is *required* for full float64: the TPU backend has no f64 LU/solve
-(the Padé denominator solve fails to compile) and its f64 ``eigh`` is
-f32-limited (measured ~1e-8 on v5e).
+(src/arnoldi.jl:293-296, src/krylov_phiv.jl:196-205). ``reduced="host"``
+(expv, phiv, phiv_timestep, kiops) selects the same split here; the
+default, ``reduced="device"``, keeps the reduced problem on the device.
 
 These helpers run **between** jitted device programs — the m×m Hessenberg
 is fetched to host (one tiny transfer), exponentiated with scipy in full
 f64/c128, and the resulting m-vector/matrix is shipped back for the jitted
-basis combination. No ``pure_callback`` is used: host staging works on
-every backend, including PJRT transports that do not support host
-callbacks. The cost is one device↔host round-trip per solve — negligible
-next to the O(m·n) basis build.
-
-``reduced_default()`` picks the path automatically: "host" on a TPU
-backend with x64 enabled, "device" otherwise.
+basis combination. No ``pure_callback`` is used. The cost is one
+device↔host round-trip per solve.
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
-__all__ = ["reduced_default", "host_expm", "host_expm_e1", "host_phiv_e1",
+__all__ = ["host_expm", "host_expm_e1", "host_phiv_e1",
            "host_phi"]
-
-
-def reduced_default() -> str:
-    if jax.default_backend() == "tpu" and jax.config.jax_enable_x64:
-        return "host"
-    return "device"
 
 
 def _hdt(dt):
@@ -93,11 +80,9 @@ def host_phi(A, k: int, out_dtype=None):
         exp([[A, E], [0, K]])[:n, n+(j-1)n : n+jn] = φ_j(A),
         E = [I 0 … 0],  K the k·n-sized block-nilpotent shift.
 
-    Exists as the host-staged route to dense f64 φ on backends whose
-    device LU does not lower (TPU) and as a convenient oracle; for
-    on-chip f64 use ``phi(..., method="pade")`` (its Newton–Schulz
-    denominator engine) instead — this helper costs one expm of a
-    (k+1)n-sized matrix on the host. Reference context: the reference
+    A host-staged route to dense f64 φ and a convenient oracle; on the
+    device use ``phi(..., method="pade")`` instead — this helper costs
+    one expm of a (k+1)n-sized matrix on the host. Reference context: the reference
     runs its Padé LU at f64 on every backend (src/phi_almohy.jl:456-507).
     """
     import scipy.linalg as sla

@@ -1,8 +1,8 @@
 """Krylov subspace construction — masked fixed-shape Arnoldi / Lanczos.
 
-TPU-native redesign of the reference's Krylov layer (reference:
-src/arnoldi.jl:1-466). Key departures, driven by XLA's static-shape model and
-TPU latency characteristics:
+Redesign of the reference's Krylov layer (reference: src/arnoldi.jl:1-466)
+for XLA. Key departures, driven by XLA's static-shape model and accelerator
+latency characteristics:
 
 * **Static shapes, dynamic truncation as data.** The reference truncates the
   subspace on happy breakdown (``Ks.m = j``, src/arnoldi.jl:356-361); here V
@@ -12,13 +12,13 @@ TPU latency characteristics:
 * **Batched orthogonalization (CGS/CGS2), not MGS.** The reference's MGS inner
   loop does one ``dot`` + ``axpy`` per prior vector (src/arnoldi.jl:297-300) —
   m sequential device→host latencies on an accelerator. Here the projection
-  coefficients come from ONE matmul ``V @ y`` (an (m+1, n)·(n,) GEMV on the
-  MXU) masked to the (I)OP window, optionally iterated twice (CGS2) for
+  coefficients come from ONE matmul ``V @ y`` (an (m+1, n)·(n,) GEMV)
+  masked to the (I)OP window, optionally iterated twice (CGS2) for
   MGS-grade stability. On a sharded mesh this costs a single ``psum`` per
   iteration instead of m.
 * **Row-major basis.** V is stored (m+1, n): each basis vector is a contiguous
-  row with n on the 128-lane axis; both the projection GEMV and the final
-  ``w = βᵀ(expHe @ V)`` combination are native MXU shapes.
+  row; both the projection GEMV and the final ``w = βᵀ(expHe @ V)``
+  combination are plain matrix products.
 * **Lanczos** (Hermitian path, reference src/arnoldi.jl:375-466) uses the
   three-term recurrence with real α/β written into a real H, auto-selected by
   the caller when the operator is Hermitian (reference: src/arnoldi.jl:342).
@@ -284,9 +284,8 @@ def lanczos(op, b, m: int, *, tol: float = 1e-7,
     else:
         # Three-term recurrence reads only the (v_prev, v_cur) carries; the
         # basis rows are emitted as lax.scan stacked outputs, which XLA
-        # writes in place. (A fori_loop with ``V.at[j+1].set`` copies the
-        # whole (m+1, n) buffer each step — measured 2.17 vs 0.60 ms per
-        # iteration at n = 10M.)
+        # writes in place. (A fori_loop with ``V.at[j+1].set`` can copy
+        # the whole (m+1, n) buffer each step.)
         def step(carry, j):
             vp, vc, bprev, broke, m_used = carry
             y = op.matvec(vc)
@@ -331,8 +330,7 @@ def lanczos_coeffs(op, b, m: int, *, tol: float = 1e-7,
     breakdown) WITHOUT materializing the basis.
 
     With no (m+1, n) output to stack, the whole recurrence runs at matvec
-    speed (measured 0.54 vs 2.2 ms/iteration at n = 10M — XLA copies large
-    stacked loop outputs). Combine with ``lanczos_replay`` for expv.
+    speed. Combine with ``lanczos_replay`` for expv.
     """
     b = jnp.asarray(b)
     dt = b.dtype

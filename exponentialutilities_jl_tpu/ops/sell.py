@@ -1,58 +1,35 @@
-"""SELL-window SpMV — vector-gather sparse kernel for unstructured matrices.
+"""SELL-window sparse packs and their SpMV.
 
-Round-1's ``blockell_spmv`` gathers x one 128-lane row-copy per 8×128 dense
-block: fine when blocks are dense, but an UNSTRUCTURED matrix (~10 nnz
-scattered per row) makes the blocks nearly empty and the effective rate
-collapses (XLA scalar-ELL measured ~1 GB/s). This kernel's design:
+Unstructured matrices (~10 nnz scattered per row) are packed in a
+sliced-ELL, lane-major layout: rows grouped in 128s (lane l = row l of
+the group); each group stores ``v = ceil(maxdeg/8)`` tiles of (8, 128),
+sublane s of tile t holding slot ``8·t+s`` of every row, padded slots
+carrying value 0. Column indices are stored local to an aligned
+``window``-wide span of x per block of 8 groups, so the value and index
+streams are contiguous (T, 8, 128) arrays of values and int32 offsets.
 
-* **Value stream without block padding** — SELL lane-major layout: rows
-  grouped in 128s (lane l = row l of the group); each group stores
-  ``v = ceil(maxdeg/8)`` tiles of (8, 128), sublane s of tile t holding
-  slot ``8·t+s`` of every row. Padded slots carry value 0. The value and
-  index streams are contiguous (T, 8, 128) arrays.
-* **Gather at VPU vector rate** — ``tpu.dynamic_gather`` (via
-  ``jnp.take_along_axis`` on an (8, 128) table) gathers 1024 elements per
-  op. Two packings:
-  - default (roll): arbitrary slot placement; one 8-step sublane-roll +
-    lane-gather + select pass per 1024-element window half;
-  - ``residue=True``: each nnz placed at sublane ≡ window-row (mod 8), so
-    a tile needs ONE gather per window half + one select — ~4 VPU ops per
-    1024 slots — at the cost of more padding (v = max per-row per-class
-    count).
-* **Latency-proof DMA schedule** — the v1 kernel issued 3 blocking DMAs
-  per 128-row group (window + values + indices) and measured 37 ms at
-  10M rows: pure DMA round-trip latency. v2 amortizes: ONE x-window, ONE
-  value-chunk and ONE index-chunk DMA per 8-group block (the block's
-  tiles are contiguous by construction), double-buffered across grid
-  steps so the next block's transfers overlap the current block's
-  compute.
-* **Reduction with no scatter** — row-per-lane makes the per-row sum a
-  sublane-axis reduction; output rows are written contiguously.
+Pack variants (the ``mode=`` of ``SellOperator.from_coo``): the default
+row-per-lane pack, ``subroll`` (one aligned 1024-column subwindow per
+group), the degree-bucketed ``SellBucketed`` and the lane-compacted
+``SellSeg``. Each has one SpMV, ``sell_spmv*_ref``: an XLA gather of x
+at the global indices, a multiply and a segment sum.
 
-Constraint: each 8-group block's (1024 rows') columns must fit one aligned
-``window``-wide span (default 2048; any multiple of 1024). After RCM this
-holds for bandwidth ≲ window − 1150; wider matrices fall back to
-block-ELL/banded. SpMV role in the reference: outsourced to SparseArrays
-(src/arnoldi.jl:182); this layer is the BASELINE.json per-chip
-speed-of-light metric.
+Constraint: each 8-group block's columns must fit one aligned
+``window``-wide span (default 2048). After RCM this holds for bandwidth
+≲ window − 1150; wider matrices use block-ELL/banded storage. SpMV role
+in the reference: outsourced to SparseArrays (src/arnoldi.jl:182).
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-__all__ = ["sell_pack", "sell_spmv", "sell_spmv_ref", "SellData",
-           "pack_index_pairs", "SellBucketed", "sell_pack_bucketed",
-           "sell_spmv_bucketed", "sell_spmv_bucketed_ref",
-           "SellSeg", "sell_pack_seg", "sell_spmv_seg",
-           "sell_spmv_seg_ref"]
+__all__ = ["sell_pack", "sell_spmv_ref", "SellData",
+           "SellBucketed", "sell_pack_bucketed",
+           "sell_spmv_bucketed_ref",
+           "SellSeg", "sell_pack_seg", "sell_spmv_seg_ref"]
 
 _W = 1024
 _LANES = 128
@@ -64,46 +41,40 @@ class SellData:
     """Packed SELL-window arrays (host-built, device-resident).
 
     vals:      (T + cap, 8, 128) values, 0 in padded slots (cap trailing
-               pad tiles let the fixed-size chunk DMA over-read safely).
+               pad tiles).
     lidx:      same shape, int32 block-window-local element indices.
     group_ptr: (G + 1,) int32 tile offsets per 128-row group.
     win_row:   (B,) int32 per-BLOCK window start (128-lane row units).
     n, nnz:    logical dimension / true nonzero count.
     win_rows:  window size in 128-lane rows (static).
     residue:   sublane ≡ window-row (mod 8) packing (static).
-    cap:       chunk-DMA tile capacity = max tiles per block (static).
+    cap:       max tiles per block (static).
     """
 
     def __init__(self, vals, lidx, group_ptr, win_row, n, nnz,
-                 win_rows=_SUB * 2, mode="roll", cap=_GPB, pptr=None,
-                 capp=0, chunks=1, uniform=0, seg=0):
+                 win_rows=_SUB * 2, mode="roll", cap=_GPB, chunks=1,
+                 uniform=0, seg=0):
         self.vals = vals
-        self.lidx = lidx             # (T+cap, 8, 128) int32, or pair-packed
+        self.lidx = lidx             # (T+cap, 8, 128) int32
         self.group_ptr = group_ptr
         self.win_row = win_row       # (B,) or (B, chunks) window starts
-        self.pptr = (pptr if pptr is not None
-                     else jnp.zeros((1,), jnp.int32))
         self.n = int(n)
         self.nnz = int(nnz)
         self.win_rows = int(win_rows)
         self.mode = str(mode)        # "roll" | "residue" | "rowsel"
                                      # | "chunked"
         self.cap = int(cap)
-        self.capp = int(capp)        # 0 = indices unpacked; else packed
-                                     # pair-chunk capacity per block
         self.chunks = int(chunks)    # window slabs per block (chunked)
         self.uk = int(uniform)       # >0: EVERY group has exactly uk
-                                     # tiles (static kernel schedule);
-                                     # 0: dynamic per-group tile counts
+                                     # tiles; 0: per-group tile counts
         self.seg = int(seg)          # >0: lane-compacted pack — lanes are
                                      # ROW SEGMENTS (seg id in lidx bits
                                      # 10+); value = suffix-sum doubling
-                                     # steps of the in-kernel segmented
-                                     # lane reduction
+                                     # steps of the segmented lane sum
 
     @property
     def uniform(self):
-        """Static-schedule flag (uk >= 1: uniform-k tiles per group)."""
+        """Uniform-layout flag (uk >= 1: uniform-k tiles per group)."""
         return self.uk
 
     @property
@@ -111,10 +82,9 @@ class SellData:
         return self.mode == "residue"
 
     def tree_flatten(self):
-        return ((self.vals, self.lidx, self.group_ptr, self.win_row,
-                 self.pptr),
+        return ((self.vals, self.lidx, self.group_ptr, self.win_row),
                 (self.n, self.nnz, self.win_rows, self.mode, self.cap,
-                 self.capp, self.chunks, self.uk, self.seg))
+                 self.chunks, self.uk, self.seg))
 
     @classmethod
     def tree_unflatten(cls, aux, children):
@@ -128,10 +98,9 @@ class SellData:
                  lidx=np.asarray(self.lidx),
                  group_ptr=np.asarray(self.group_ptr),
                  win_row=np.asarray(self.win_row),
-                 pptr=np.asarray(self.pptr),
                  meta=np.asarray([self.n, self.nnz, self.win_rows,
-                                  self.cap, self.capp, self.chunks,
-                                  self.uk, self.seg],
+                                  self.cap, self.chunks, self.uk,
+                                  self.seg],
                                  np.int64),
                  mode=np.asarray(self.mode))
 
@@ -142,14 +111,11 @@ class SellData:
             path = path + ".npz"       # np.savez auto-appends .npz
         z = np.load(path, allow_pickle=False)
         meta = [int(v) for v in z["meta"]]
-        n, nnz, win_rows, cap, capp, chunks = meta[:6]
-        uniform = int(meta[6]) if len(meta) > 6 else 0
-        seg = int(meta[7]) if len(meta) > 7 else 0
+        n, nnz, win_rows, cap, chunks, uniform, seg = meta
         return cls(jnp.asarray(z["vals"]), jnp.asarray(z["lidx"]),
                    jnp.asarray(z["group_ptr"]), jnp.asarray(z["win_row"]),
                    n, nnz, win_rows=win_rows, mode=str(z["mode"]),
-                   cap=cap, pptr=jnp.asarray(z["pptr"]), capp=capp,
-                   chunks=chunks, uniform=uniform, seg=seg)
+                   cap=cap, chunks=chunks, uniform=uniform, seg=seg)
 
 
 jax.tree_util.register_pytree_node(
@@ -157,58 +123,16 @@ jax.tree_util.register_pytree_node(
     lambda s: s.tree_flatten(),
     lambda aux, ch: SellData(ch[0], ch[1], ch[2], ch[3], aux[0], aux[1],
                              win_rows=aux[2], mode=aux[3], cap=aux[4],
-                             pptr=ch[4], capp=aux[5], chunks=aux[6],
-                             uniform=aux[7] if len(aux) > 7 else 0,
-                             seg=aux[8] if len(aux) > 8 else 0),
+                             chunks=aux[5], uniform=aux[6], seg=aux[7]),
 )
-
-
-def pack_index_pairs(data: SellData) -> SellData:
-    """Halve the index stream: two tiles' 11-bit indices share one int32
-    plane (block-locally paired so the per-block chunk DMA stays one
-    contiguous read). Valid for window ≤ 8192 (indices < 16 bits).
-    A ``SellBucketed`` pack is pair-packed bucket by bucket."""
-    if isinstance(data, SellBucketed):
-        return SellBucketed([pack_index_pairs(b) for b in data.buckets],
-                            data.group_src, data.n, data.nnz,
-                            win_rows=data.win_rows)
-    if data.capp:
-        return data
-    if data.win_rows * _LANES > 8192:
-        raise ValueError("pair packing needs window <= 8192")
-    import numpy as _onp
-    gp = _onp.asarray(data.group_ptr)
-    G = gp.shape[0] - 1
-    B = (-(-G // _GPB) if data.mode == "subroll"
-         else data.win_row.shape[0])
-    T = int(gp[-1])
-    gp_blk = gp[_onp.minimum(_onp.arange(B + 1) * _GPB, G)]
-    nt_b = _onp.diff(gp_blk)
-    ntp_b = (nt_b + 1) // 2
-    pptr = _onp.concatenate([[0], _onp.cumsum(ntp_b)]).astype(_onp.int32)
-    TP = int(pptr[-1])
-    capp = (data.cap + 1) // 2 + 1
-    li = _onp.asarray(data.lidx[:T])
-    packed = _onp.zeros((TP + capp, _SUB, _LANES), _onp.int32)
-    tb = _onp.searchsorted(gp_blk[1:], _onp.arange(T), side="right")
-    loc = _onp.arange(T) - gp_blk[tb]
-    dest = pptr[tb] + loc // 2
-    even = (loc % 2) == 0
-    packed[dest[even]] += li[even]
-    packed[dest[~even]] += li[~even] << 16
-    return SellData(data.vals, jnp.asarray(packed), data.group_ptr,
-                    data.win_row, data.n, data.nnz, uniform=data.uniform,
-                    win_rows=data.win_rows, mode=data.mode, cap=data.cap,
-                    pptr=jnp.asarray(pptr), capp=capp, chunks=data.chunks)
 
 
 def _pack_chunked(A, n: int, dtype, window: int, max_chunks: int):
     """Chunked-window packing: each 8-group block's columns are covered by
     up to ``max_chunks`` aligned ``window``-wide slabs (greedy cover);
-    every TILE is chunk-pure (all its slots gather from one slab), so the
-    kernel's gather stays one-slab-wide regardless of total column span.
-    The slab id rides the index high bits (li = c·8192 + local), including
-    in padded slots, so the kernel can read a tile's slab from any slot.
+    every TILE is chunk-pure (all its slots gather from one slab). The slab
+    id rides the index high bits (li = c·8192 + local), including in
+    padded slots, so a tile's slab can be read from any slot.
     """
     if window > 8192:
         raise ValueError("chunked mode needs window <= 8192 (13-bit "
@@ -305,13 +229,8 @@ def _subroll_transform(lidx_all, group_ptr, g_of, indices, wsb_group,
                        wr: int):
     """Rebase indices onto per-GROUP 1024-wide 128-aligned subwindows.
 
-    The kernel DMAs each group's (8, 128) x-subwindow into its own
-    sublane-ALIGNED VMEM slot (8 small x-DMAs per block instead of one
-    block-window DMA — a traced-offset VMEM slice at arbitrary sublane
-    offset is NOT free: the first cut of this mode sliced the block
-    window at goff and measured 25.6 ms vs roll's 10.6 at 10M rows) and
-    gathers with ONE 8-step roll pass — half the full-window sequence,
-    no in-half masking. Returns the per-group window starts (128-lane
+    Each group then reads x only inside its own aligned (8, 128)
+    subwindow. Returns the per-group window starts (128-lane
     row units, absolute), or None when some group's span does not fit
     1024 after alignment (caller falls back to plain roll)."""
     G = len(group_ptr) - 1
@@ -346,18 +265,16 @@ _UK_PAD = 2.0        # auto repack only if k·G <= _UK_PAD · T (pad traffic)
 def _maybe_uniform_k(va, lia, gp, mode: str, uniform_k):
     """Repack to a STATIC uniform-k schedule when profitable.
 
-    The measured per-tile cost of the dynamic subroll path is ~2/3
-    bookkeeping (group_ptr lookups + ``fori_loop`` carry, BENCHMARKS.md):
-    padding every 128-row group to exactly k = max tiles/group lets the
-    kernel run a fully static schedule (the d<=8 "uniform" fast path
-    generalized), trading zero-padded value/index DMA traffic for the
-    bookkeeping. Auto policy (``uniform_k=None``): repack when
+    Padding every 128-row group to exactly k = max tiles/group gives every
+    group the same tile count (the d<=8 "uniform" layout generalized),
+    trading zero-padded value/index traffic for per-group offsets. Auto
+    policy (``uniform_k=None``): repack when
     k <= _UK_MAX and the padded tile count k·G <= _UK_PAD·T.
 
     Returns (va, lia, gp, cap_or_None, uk); uk=0 keeps the dynamic path,
     uk>=1 means every group holds exactly uk tiles (group g's tiles at
     [g·uk, (g+1)·uk); trailing phantom groups up to the block boundary
-    are all-zero so the fixed-size chunk DMA stays in range).
+    are all-zero).
     """
     gp64 = np.asarray(gp, np.int64)
     G = len(gp64) - 1
@@ -398,10 +315,8 @@ def sell_pack(rows_cols_vals, n: int, dtype=np.float32,
     subwindows — half the gather work of "roll") when every 128-row
     group's column span fits an aligned 1024 subwindow, else "roll".
 
-    ``uniform_k``: static-schedule repack policy for subroll packings
-    whose max tiles/group k exceeds 1 — pad every group to exactly k
-    tiles so the kernel runs the fully static fast path (no group_ptr /
-    ``fori_loop`` bookkeeping, measured ~2/3 of dynamic per-tile cost).
+    ``uniform_k``: uniform repack policy for subroll packings whose max
+    tiles/group k exceeds 1 — pad every group to exactly k tiles.
     None (default) auto-repacks when k <= 8 and padding k·G <= 2·T;
     True forces (k <= 8 required); False keeps the dynamic path.
 
@@ -431,7 +346,7 @@ def sell_pack(rows_cols_vals, n: int, dtype=np.float32,
     if mode == "chunked":
         return _pack_chunked(A, n, dtype, window, max_chunks)
     if mode == "rowsel":
-        from ...native import sell_rowsel_pack_csr
+        from ..native import sell_rowsel_pack_csr
         packed = sell_rowsel_pack_csr(A, window=window)
         if packed is None:
             raise RuntimeError(
@@ -444,7 +359,7 @@ def sell_pack(rows_cols_vals, n: int, dtype=np.float32,
     if not residue:
         # Native C++ single-pass packer when available.
         try:
-            from ...native import sell_pack_csr
+            from ..native import sell_pack_csr
             packed = sell_pack_csr(A, window=window)
         except ImportError:
             packed = None
@@ -578,214 +493,6 @@ def sell_pack(rows_cols_vals, n: int, dtype=np.float32,
                     mode=out_mode, cap=cap, uniform=uk)
 
 
-def _gather_tile(win, li, wr: int, mode: str, sid):
-    """Gather 1024 x-elements for one (8, 128) tile from the (wr, 128)
-    VMEM window (see module doc)."""
-    if mode == "rowsel":
-        # Two-step gather: (1) build the per-sublane row table
-        # T[s, :] = win[qrow_s, :] with one axis-0 dynamic_gather per
-        # half (qrow = li >> 7 is uniform along lanes by construction);
-        # (2) one lane gather by r. ~9 VPU ops per 1024 slots.
-        qv = li >> 7
-        r = li & 127
-        T8 = None
-        for h in range(wr // _SUB):
-            idxh = jnp.clip(qv - h * _SUB, 0, _SUB - 1)
-            Th = jnp.take_along_axis(win[h * _SUB:(h + 1) * _SUB, :],
-                                     idxh, axis=0,
-                                     mode="promise_in_bounds")
-            if T8 is None:
-                T8 = Th
-            else:
-                T8 = jnp.where((qv >> 3) == h, Th, T8)
-        return jnp.take_along_axis(T8, r, axis=1,
-                                   mode="promise_in_bounds")
-    if mode == "residue":
-        r = li & 127
-        gathered = None
-        for h in range(wr // _SUB):
-            half = win[h * _SUB:(h + 1) * _SUB, :]
-            Gh = jnp.take_along_axis(half, r, axis=1,
-                                     mode="promise_in_bounds")
-            if gathered is None:
-                gathered = Gh
-            else:
-                gathered = jnp.where((li >> 10) == h, Gh, gathered)
-        return gathered
-    if mode == "subroll":
-        # ``win`` is the group's (8, 128) subwindow (the kernel sliced it
-        # by the tile's tagged offset): ONE 8-step roll/gather/select
-        # pass — half the full-window roll sequence, no in-half selects.
-        q = li >> 7
-        r = li & 127
-        jd = (q - sid) & 7
-        gathered = jnp.zeros(li.shape, win.dtype)
-        for j in range(_SUB):
-            Wj = pltpu.roll(win, _SUB - j, 0) if j else win
-            Gj = jnp.take_along_axis(Wj, r, axis=1,
-                                     mode="promise_in_bounds")
-            gathered = jnp.where(jd == j, Gj, gathered)
-        return gathered
-    q = li >> 7
-    r = li & 127
-    gathered = jnp.zeros(li.shape, win.dtype)
-    for h in range(wr // _SUB):
-        half = win[h * _SUB:(h + 1) * _SUB, :]
-        qh = q - h * _SUB
-        in_half = (q >> 3) == h
-        jd = (qh - sid + _SUB) & 7
-        for j in range(_SUB):
-            Wj = pltpu.roll(half, _SUB - j, 0) if j else half
-            Gj = jnp.take_along_axis(Wj, r, axis=1,
-                                     mode="promise_in_bounds")
-            gathered = jnp.where(in_half & (jd == j), Gj, gathered)
-    return gathered
-
-
-def _sell_kernel(group_ptr_ref, win_row_ref, pptr_ref, vals_hbm, lidx_hbm,
-                 x_hbm, out_ref, win2, vbuf, ibuf, sems, *, wr: int,
-                 cap: int, mode: str, nblocks: int, capp: int, nc: int = 1,
-                 uniform: int = 0, seg: int = 0):
-    b = pl.program_id(0)
-    par = b % 2
-    nxt = (b + 1) % 2
-    sid = jax.lax.broadcasted_iota(jnp.int32, (_SUB, _LANES), 0)
-    nwin = _GPB if mode == "subroll" else nc
-    nsem = nwin + 2                  # per-parity: x-slabs + vals + idx
-
-    def block_dmas(p, blk):
-        t0 = group_ptr_ref[blk * _GPB]
-        if capp:
-            icp = pltpu.make_async_copy(
-                lidx_hbm.at[pl.ds(pptr_ref[blk], capp)], ibuf.at[p],
-                sems.at[p * nsem + nwin + 1])
-        else:
-            icp = pltpu.make_async_copy(lidx_hbm.at[pl.ds(t0, cap)],
-                                        ibuf.at[p],
-                                        sems.at[p * nsem + nwin + 1])
-        if mode == "subroll":
-            # one ALIGNED (8, 128) x-subwindow per 128-row group: eight
-            # small DMAs per block, landing each group's window in its
-            # own sublane-aligned VMEM slot (win_row is per-GROUP here)
-            xcps = tuple(
-                pltpu.make_async_copy(
-                    x_hbm.at[pl.ds(win_row_ref[blk * _GPB + g], _SUB)],
-                    win2.at[p, pl.ds(g * _SUB, _SUB)],
-                    sems.at[p * nsem + g])
-                for g in range(_GPB))
-        else:
-            xcps = tuple(
-                pltpu.make_async_copy(
-                    x_hbm.at[pl.ds(win_row_ref[blk * nc + c], wr)],
-                    win2.at[p] if nc == 1
-                    else win2.at[p, pl.ds(c * wr, wr)],
-                    sems.at[p * nsem + c])
-                for c in range(nc))
-        return xcps + (
-            pltpu.make_async_copy(vals_hbm.at[pl.ds(t0, cap)],
-                                  vbuf.at[p], sems.at[p * nsem + nwin]),
-            icp,
-        )
-
-    @pl.when(b == 0)
-    def _():
-        for cp in block_dmas(0, 0):
-            cp.start()
-
-    @pl.when(b + 1 < nblocks)
-    def _():
-        for cp in block_dmas(nxt, b + 1):
-            cp.start()
-
-    for cp in block_dmas(par, b):
-        cp.wait()
-
-    if uniform and mode == "subroll":
-        # Fast path for the UNIFORM k-tiles-per-group regime (uk=1 is
-        # the maxdeg ≤ 8 low-degree unstructured class; uk>1 is the
-        # zero-padded repack of _maybe_uniform_k): no group_ptr lookups,
-        # no fori_loop, fully static schedule — the measured non-gather
-        # bookkeeping was ~2/3 of the per-tile cost.
-        uk = int(uniform)
-        for g in range(_GPB):
-            sub = win2[par, g * _SUB:(g + 1) * _SUB]
-            acc = None
-            li0 = None
-            for t in range(uk):
-                jloc = g * uk + t
-                if capp:
-                    word = ibuf[par, jloc >> 1]
-                    li = (word >> ((jloc & 1) * 16)) & 0xFFFF
-                else:
-                    li = ibuf[par, jloc]
-                if li0 is None:
-                    li0 = li
-                gathered = _gather_tile(sub, li, wr, "subroll", sid)
-                term = vbuf[par, jloc] * gathered
-                acc = term if acc is None else acc + term
-            if seg:
-                # Lane-compacted pack: lanes are ROW SEGMENTS (a row of
-                # degree d occupies ceil(d/8) adjacent lanes). Segmented
-                # SUFFIX sum by doubling: after step 2^k, lane l holds
-                # Σ x[l .. min(l + 2^k − 1, segment end)] — the HEAD
-                # lane of each segment ends with the full row sum, which
-                # the compaction kernel (_seg_compact_call) picks up.
-                # The same-segment decision for step k is PRECOMPUTED at
-                # pack time as bit 17+k of lidx (all sublanes of a lane
-                # agree; bits 0..9 are the gather index, 10..16 the seg
-                # id for the XLA reference path — both harmless to the
-                # gather, whose q/jd extraction masks to 3 bits), so the
-                # hot loop is one lane-roll + one bit-test + one masked
-                # add per step on the native (8, 128) layout — the
-                # segid-roll/compare variant measured +4.1 ms and a
-                # (1, 128) variant relayouts (14.4 vs ~5 ms) at 10M.
-                for st in range(seg):
-                    sh = 1 << st
-                    acc_s = pltpu.roll(acc, _LANES - sh, 1)
-                    ok = (li0 & (1 << (17 + st))) > 0
-                    acc = acc + jnp.where(ok, acc_s, 0)
-            out_ref[g, :] = jnp.sum(acc, axis=0)
-        return
-
-    tbase = group_ptr_ref[b * _GPB]
-    win = None if mode in ("chunked", "subroll") else win2[par]
-    for g in range(_GPB):
-        t0 = group_ptr_ref[b * _GPB + g] - tbase
-        nt = group_ptr_ref[b * _GPB + g + 1] - tbase - t0
-
-        def body(t, acc):
-            if capp:
-                jloc = t0 + t
-                word = ibuf[par, jloc >> 1]
-                li = (word >> ((jloc & 1) * 16)) & 0xFFFF
-            else:
-                li = ibuf[par, t0 + t]
-            if mode == "chunked":
-                # Tiles are chunk-pure: every slot (padded included)
-                # carries the tile's slab id in bits 13+, so any
-                # reduction recovers it; gather from that one slab.
-                cid = jnp.max(li) >> 13
-                slab = win2[par, pl.ds(cid * wr, wr)]
-                gathered = _gather_tile(slab, li & 0x1FFF, wr, "roll",
-                                        sid)
-            elif mode == "subroll":
-                # this group's subwindow sits in its own aligned slot
-                sub = win2[par, pl.ds(g * _SUB, _SUB)]
-                gathered = _gather_tile(sub, li, wr, "subroll", sid)
-            else:
-                gathered = _gather_tile(win, li, wr, mode, sid)
-            return acc + vbuf[par, t0 + t] * gathered
-
-        # (A 2× manual unroll with a clamped+masked odd tail was
-        # measured at 13.3 ms vs this loop's 10.6 ms at 10M rows —
-        # the pair's extra masked tile and select outweigh the loop
-        # bookkeeping; the fixed per-tile cost is in the gather
-        # sequence itself, not the back-edge.)
-        acc = lax.fori_loop(0, nt, body,
-                            jnp.zeros((_SUB, _LANES), out_ref.dtype))
-        out_ref[g, :] = jnp.sum(acc, axis=0)
-
-
 def _ref_group_rows(data: SellData, x_pad):
     """Pure-XLA per-group row results (G, 128) given the FULL padded x.
     Shared by ``sell_spmv_ref`` and the bucketed reference path (whose
@@ -818,11 +525,8 @@ def _ref_group_rows(data: SellData, x_pad):
 
 @jax.jit
 def sell_spmv_ref(data: SellData, x):
-    """Pure-XLA reference/fallback path: identical math, any platform.
-    Operates on UNPACKED indices (call before ``pack_index_pairs``)."""
-    if data.capp:
-        raise ValueError("sell_spmv_ref needs unpacked indices; keep the "
-                         "pre-pack_index_pairs SellData for reference runs")
+    """y = A @ x for a SELL-window pack: gather x at the global indices,
+    multiply, and segment-sum per 128-row group."""
     n = data.n
     G = data.group_ptr.shape[0] - 1
     x_pad = jnp.pad(x, (0, G * _LANES - n + data.win_rows * _LANES))
@@ -830,101 +534,24 @@ def sell_spmv_ref(data: SellData, x):
     return y.reshape(-1)[:n]
 
 
-def _sell_call(data: SellData, x2, *, interpret: bool = False):
-    """Launch the Pallas kernel over a prepared padded x2 (already
-    reshaped to (rows, 128)); returns the (B·8, 128) per-group row
-    results (trailing phantom groups up to the block boundary are
-    zero). Shared by ``sell_spmv`` and the bucketed dispatcher, whose
-    per-bucket SellData index into the FULL padded x."""
-    G = data.group_ptr.shape[0] - 1
-    subroll = data.mode == "subroll"
-    B = -(-G // _GPB) if subroll else data.win_row.shape[0]
-    x = x2  # dtype carrier for the specs below
-
-    G8 = B
-    gp = data.group_ptr
-    need = G8 * _GPB + 1
-    if gp.shape[0] < need:
-        gp = jnp.concatenate([gp, jnp.full((need - gp.shape[0],), gp[-1],
-                                           jnp.int32)])
-    wrow = data.win_row.reshape(-1)
-    if subroll and wrow.shape[0] < B * _GPB:
-        wrow = jnp.concatenate([wrow, jnp.zeros((B * _GPB
-                                                 - wrow.shape[0],),
-                                                jnp.int32)])
-
-    nc = data.chunks
-    out = pl.pallas_call(
-        functools.partial(_sell_kernel, wr=data.win_rows, cap=data.cap,
-                          mode=data.mode, nblocks=B, capp=data.capp,
-                          nc=nc, uniform=data.uk, seg=data.seg),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=3,
-            grid=(B,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.ANY),   # vals (HBM)
-                pl.BlockSpec(memory_space=pltpu.ANY),   # lidx (HBM)
-                pl.BlockSpec(memory_space=pltpu.ANY),   # x2   (HBM)
-            ],
-            out_specs=pl.BlockSpec((_GPB, _LANES), lambda b, *_: (b, 0),
-                                   memory_space=pltpu.VMEM),
-            scratch_shapes=[
-                pltpu.VMEM((2, _GPB * _SUB if subroll
-                            else nc * data.win_rows, _LANES), x.dtype),
-                pltpu.VMEM((2, data.cap, _SUB, _LANES), data.vals.dtype),
-                pltpu.VMEM((2, data.capp or data.cap, _SUB, _LANES),
-                           jnp.int32),
-                pltpu.SemaphoreType.DMA(
-                    (2 * ((_GPB if subroll else nc) + 2),)),
-            ],
-        ),
-        out_shape=jax.ShapeDtypeStruct((B * _GPB, _LANES), x.dtype),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * data.vals.shape[0] * _SUB * _LANES,
-            bytes_accessed=(data.vals.size * data.vals.dtype.itemsize
-                            + data.lidx.size * 4
-                            + 2 * data.n * x.dtype.itemsize),
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(gp, wrow, data.pptr, data.vals, data.lidx, x2)
-    return out
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def sell_spmv(data: SellData, x, *, interpret: bool = False):
-    """y = A @ x for a SELL-window packed matrix (see module docstring)."""
-    n = data.n
-    G = data.group_ptr.shape[0] - 1
-    n_pad = G * _LANES
-    W = data.win_rows * _LANES
-    x2 = jnp.pad(x, (0, n_pad - n + W)).reshape(-1, _LANES)
-    out = _sell_call(data, x2, interpret=interpret)
-    return out.reshape(-1)[:n]
-
-
 class SellBucketed:
     """Degree-bucketed SELL-window pack (round 3, STATUS gap #1).
 
-    Mixed-degree matrices defeat the single uniform-k static schedule:
-    padding EVERY 128-row group to k = max tiles/group costs k·G tile
-    traffic, so ``_maybe_uniform_k`` bails past 2× padding and the
-    kernel falls back to the ~72 GB/s dynamic path (group_ptr lookups +
-    ``fori_loop`` carry are the measured ~2/3 of per-tile cost,
-    BENCHMARKS.md). In subroll mode each 128-row group carries its OWN
-    window start, so groups are freely reorderable: this container
-    sorts groups by their tile count k, launches the fully static
-    uniform-k kernel once per class present (k ≤ 8; ZERO padding within
-    a class), routes k > 8 groups to one dynamic-schedule residual
-    bucket, and reassembles y with a single group-granular gather
-    (a 40 MB row move at 10M rows — noise next to the tile streams).
+    Mixed-degree matrices waste the single uniform-k layout: padding
+    EVERY 128-row group to k = max tiles/group costs k·G tile traffic,
+    so ``_maybe_uniform_k`` bails past 2× padding. In subroll mode each
+    128-row group carries its OWN window start, so groups are freely
+    reorderable: this container sorts groups by their tile count k into
+    one class per k ≤ 8 (ZERO padding within a class), routes k > 8
+    groups to one residual bucket, and reassembles y with a single
+    group-granular gather.
 
     buckets:   per-class SellData, each over its own rows but indexing
                the FULL x (win_row stays absolute).
     group_src: (G,) int32 — concat-output row block (128-row group)
                holding original group g (inverse of the class sort).
 
-    Reference context: the SpMV is THE device kernel of the Krylov
+    Reference context: the SpMV is THE device operation of the Krylov
     stack (reference src/arnoldi.jl:182); SELL-C-σ-style degree sorting
     is the standard fix for mixed-degree ELL storage — here it sorts
     GROUPS (not rows), which preserves every per-group subwindow.
@@ -959,9 +586,8 @@ class SellBucketed:
             arrs[f"b{i}_lidx"] = np.asarray(b.lidx)
             arrs[f"b{i}_group_ptr"] = np.asarray(b.group_ptr)
             arrs[f"b{i}_win_row"] = np.asarray(b.win_row)
-            arrs[f"b{i}_pptr"] = np.asarray(b.pptr)
             arrs[f"b{i}_meta"] = np.asarray(
-                [b.n, b.nnz, b.win_rows, b.cap, b.capp, b.chunks, b.uk],
+                [b.n, b.nnz, b.win_rows, b.cap, b.chunks, b.uk],
                 np.int64)
         np.savez(path, **arrs)
 
@@ -974,14 +600,13 @@ class SellBucketed:
         n, nnz, win_rows, nb = [int(v) for v in z["meta"]]
         buckets = []
         for i in range(nb):
-            bn, bnnz, bwr, cap, capp, chunks, uk = [
+            bn, bnnz, bwr, cap, chunks, uk = [
                 int(v) for v in z[f"b{i}_meta"]]
             buckets.append(SellData(
                 jnp.asarray(z[f"b{i}_vals"]), jnp.asarray(z[f"b{i}_lidx"]),
                 jnp.asarray(z[f"b{i}_group_ptr"]),
                 jnp.asarray(z[f"b{i}_win_row"]), bn, bnnz,
                 win_rows=bwr, mode="subroll", cap=cap,
-                pptr=jnp.asarray(z[f"b{i}_pptr"]), capp=capp,
                 chunks=chunks, uniform=uk))
         return cls(buckets, jnp.asarray(z["group_src"]), n, nnz,
                    win_rows=win_rows)
@@ -1002,8 +627,6 @@ def bucket_sell(base: SellData, kmax: int = _UK_MAX) -> SellBucketed:
             "bucketed packing requires subroll mode (per-group windows); "
             f"this matrix packed as '{base.mode}' — RCM-permute for "
             "locality or use roll/chunked/block-ELL instead")
-    if base.capp:
-        raise ValueError("bucket before pack_index_pairs")
     gp = np.asarray(base.group_ptr, np.int64)
     vals = np.asarray(base.vals)
     lidx = np.asarray(base.lidx)
@@ -1067,30 +690,14 @@ def sell_pack_bucketed(rows_cols_vals, n: int, dtype=np.float32,
     return bucket_sell(base, kmax=kmax)
 
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def sell_spmv_bucketed(data: SellBucketed, x, *, interpret: bool = False):
-    """y = A @ x for a degree-bucketed SELL pack: one static uniform-k
-    kernel launch per degree class + one group-granular regather."""
-    n = data.n
-    G = data.group_src.shape[0]
-    W = data.win_rows * _LANES
-    x2 = jnp.pad(x, (0, G * _LANES - n + W)).reshape(-1, _LANES)
-    outs = [_sell_call(b, x2, interpret=interpret) for b in data.buckets]
-    ys = jnp.concatenate(outs, axis=0)
-    return ys[data.group_src].reshape(-1)[:n]
-
-
 @jax.jit
 def sell_spmv_bucketed_ref(data: SellBucketed, x):
-    """Pure-XLA reference path for the bucketed pack (any platform;
-    unpacked indices — call before ``pack_index_pairs``)."""
+    """y = A @ x for the bucketed pack (XLA gather + segment sum)."""
     n = data.n
     G = data.group_src.shape[0]
     x_pad = jnp.pad(x, (0, G * _LANES - n + data.win_rows * _LANES))
     outs = []
     for b in data.buckets:
-        if b.capp:
-            raise ValueError("bucketed ref path needs unpacked indices")
         Gc = b.group_ptr.shape[0] - 1
         Bc = -(-Gc // _GPB)
         rows = _ref_group_rows(b, x_pad)
@@ -1100,46 +707,25 @@ def sell_spmv_bucketed_ref(data: SellBucketed, x):
 
 
 # ---------------------------------------------------------------------------
-# Lane-compacted ("segmented") SELL — SCATTERED-degree matrices at the
-# uniform-k=1 static rate (VERDICT r3 #3).
+# Lane-compacted ("segmented") SELL — SCATTERED-degree matrices.
 #
 # Degree bucketing (SellBucketed) needs the degree classes to be
 # CLUSTERED in the row order: with scattered high-degree rows every
 # 128-row group contains one, all groups land in the top class, and the
-# per-slot padding (or the dynamic-path bookkeeping) eats the rate. A
-# degree-sorting row permutation cannot fix it either: 128 same-class
-# rows of a 5%-density class span ~2500 rows of a banded matrix — far
-# outside the kernel's 1024-column x-gather window, which is a hard
-# VPU-gather invariant.
+# per-slot padding returns. A degree-sorting row permutation cannot fix
+# it either: 128 same-class rows of a 5%-density class span ~2500 rows of
+# a banded matrix, far outside the pack's 1024-column subwindow.
 #
-# This pack dissolves the row↔lane identity instead: a row of degree d
+# This pack dissolves the row<->lane identity instead: a row of degree d
 # occupies ceil(d/8) ADJACENT LANES ("row segment") of one (8, 128)
-# tile, so EVERY group is exactly one tile (uniform k = 1, the fastest
-# static schedule, zero slot padding beyond the ≤7 tail slots of each
-# row) for ANY degree mix — scattered or clustered, up to 1024 nnz/row.
+# tile, so EVERY group is exactly one tile (zero slot padding beyond the
+# <=7 tail slots of each row) for ANY degree mix, up to 1024 nnz/row.
 # Groups are plain 128-lane slices of the lane sequence (rows may
-# straddle a group boundary), each with its own aligned x-subwindow
-# (span = ~91 rows of the band — tighter than the row-per-lane pack).
-# The per-row totals are reassembled by a SECOND small Pallas pass
-# (_seg_compact_kernel) over the lane-sum array — an XLA element gather
-# here measured 150 ms at 10M rows (the TPU has no scalar-gather path),
-# and in-main-kernel segmented suffix-sums cost a lane-axis roll per
-# doubling step per tile (+2 ms/step at 78k tiles). The compaction runs
-# on ~8·avg_seg× fewer tiles, so it absorbs the segment logic almost
-# for free: per 1024 output rows, eight per-sublane (D, 128) window
-# DMAs + one packed index tile; DIRECT mode (segments ≤ 8 lanes, i.e.
-# degree ≤ 64) sums each row's consecutive lane sums right there
-# (rows may straddle any boundary — lanes are globally contiguous);
-# longer segments fall back to in-kernel doubling + two-head pickup.
-#
-# Measured (v5e, 10M rows, band 700, degrees 6/20/40 SHUFFLED):
-#   dynamic subroll 12.8 ms (63 GB/s) | bucketed 10.4 (78) |
-#   seg 8.08 ms (100 GB/s effective-CSR, 11.3 Gnnz/s) — and the same
-#   8.2 ms for the clustered layout (degree-layout-blind).
-# Container guidance: CLUSTERED degree mixes → SellBucketed (4.9 ms:
-# zero slot padding per class beats seg's 1.4× lane inflation);
-# uniform maxdeg ≤ 8 → plain uniform pack (3.9 ms); SCATTERED mixes /
-# anything the bucketed split degenerates on → this pack.
+# straddle a group boundary), each with its own aligned x-subwindow.
+# Per-row totals are reassembled from the lane sums: DIRECT mode
+# (segments <= 8 lanes, i.e. degree <= 64) sums each row's consecutive
+# lane sums; longer segments use a segmented suffix sum by doubling and
+# pick up one or two head lanes.
 # ---------------------------------------------------------------------------
 
 
@@ -1270,18 +856,14 @@ def sell_pack_seg(rows_cols_vals, n: int, dtype=np.float32) -> SellSeg:
 
     max_seg = int(np.max(np.minimum(k, _LANES))) if n else 1
     if max_seg <= _SEG_DIRECT_MAX:
-        # DIRECT mode: the main kernel emits raw lane sums (seg = 0 —
-        # the pure uniform-k=1 fast path) and the compaction kernel sums
-        # each row's ≤ Lmax consecutive lane sums itself: it runs on
-        # ~avg_seg·8× fewer tiles, so Lmax·D gathers there cost a few
-        # percent of one in-kernel doubling step (a lane-axis roll per
-        # tile measured +2 ms at 78k tiles). Rows may straddle ANY
+        # DIRECT mode: raw lane sums (seg = 0), then each row's ≤ Lmax
+        # consecutive lane sums are added. Rows may straddle ANY
         # boundary — lanes are globally contiguous.
         steps = 0
         bits2d = None
     else:
-        # DOUBLING mode (segments up to 128 lanes): in-kernel segmented
-        # suffix-sum; head positions compacted afterwards.
+        # DOUBLING mode (segments up to 128 lanes): segmented suffix-sum;
+        # head positions compacted afterwards.
         # seg id = the row's first lane within this group (monotone +
         # unique per group); pad lanes take their own lane index.
         gl = np.arange(G * _LANES, dtype=np.int64) % _LANES
@@ -1293,7 +875,7 @@ def sell_pack_seg(rows_cols_vals, n: int, dtype=np.float32) -> SellSeg:
         steps = 0
         while (1 << steps) < ms:
             steps += 1
-        # per-step same-segment masks (kernel bit 17+st):
+        # per-step same-segment masks (lidx bit 17+st):
         # ok[l] = (l + 2^st < 128) & (seg[l] == seg[l + 2^st])
         seg2d = seg_full.reshape(G, _LANES)
         bits = np.zeros((G, _LANES), np.int64)
@@ -1361,10 +943,9 @@ def sell_pack_seg(rows_cols_vals, n: int, dtype=np.float32) -> SellSeg:
             "window; use the bucketed/dynamic modes")
     cwr = D
 
-    # the compaction window DMA reads lane-sum rows [cws, cws + cwr):
-    # grow the pack with empty trailing groups so the main kernel's
-    # output (whose row count _sell_call derives from group_ptr) covers
-    # every window
+    # each compaction window covers lane-sum rows [cws, cws + cwr): grow
+    # the pack with empty trailing groups so the lane sums cover every
+    # window
     B = max(B, -(-int(cws.max() + cwr) // _GPB))
     T2 = B * _GPB
     if T2 > T:
@@ -1386,106 +967,6 @@ def sell_pack_seg(rows_cols_vals, n: int, dtype=np.float32) -> SellSeg:
                    jnp.asarray(h2.astype(np.int32)),
                    jnp.asarray(cws.astype(np.int32)), jnp.asarray(cidx),
                    cwr, lmax)
-
-
-def _seg_compact_kernel(cws_ref, cidx_hbm, src_hbm, out_ref, win2, ibuf,
-                        sems, *, D: int, nblocks: int, lmax: int):
-    """Compaction (banner): per 1024 output rows, eight PER-SUBLANE
-    lane-sum windows of D rows + one packed index tile. DIRECT mode
-    (lmax > 0): sum each row's ≤ lmax consecutive lane sums (the main
-    kernel emitted RAW lane sums). Head mode (lmax == 0): pick the two
-    suffix-summed head lanes. Every candidate is one of D
-    lane-gather+select reads (positions within a sublane span at most
-    D·128)."""
-    b = pl.program_id(0)
-    par = b % 2
-
-    def dmas(p, blk):
-        cps = tuple(
-            pltpu.make_async_copy(
-                src_hbm.at[pl.ds(cws_ref[blk * _SUB + s], D)],
-                win2.at[p, s], sems.at[p * (_SUB + 1) + s])
-            for s in range(_SUB))
-        return cps + (pltpu.make_async_copy(
-            cidx_hbm.at[blk], ibuf.at[p],
-            sems.at[p * (_SUB + 1) + _SUB]),)
-
-    @pl.when(b == 0)
-    def _():
-        for cp in dmas(0, 0):
-            cp.start()
-
-    @pl.when(b + 1 < nblocks)
-    def _():
-        for cp in dmas((b + 1) % 2, b + 1):
-            cp.start()
-
-    for cp in dmas(par, b):
-        cp.wait()
-    packed = ibuf[par]
-
-    def gather(rel):
-        r, dsel = rel & 0x7F, rel >> 7
-        g = jnp.zeros((_SUB, _LANES), win2.dtype)
-        for d in range(D):
-            Wd = win2[par, :, d, :]            # (8, 128): row d per sublane
-            Gd = jnp.take_along_axis(Wd, r, axis=1,
-                                     mode="promise_in_bounds")
-            g = jnp.where(dsel == d, Gd, g)
-        return g
-
-    if lmax:
-        rel0 = packed & 0x3FF
-        ln = packed >> 10
-        acc = gather(rel0)                     # j = 0 always in range
-        for j in range(1, lmax):
-            acc = acc + jnp.where(j < ln, gather(rel0 + j), 0)
-        out_ref[...] = acc
-    else:
-        g1 = gather(packed & 0x3FF)
-        g2 = gather((packed >> 10) & 0x3FF)
-        out_ref[...] = g1 + jnp.where((packed >> 20) > 0, g2, 0)
-
-
-def _seg_compact_call(data: "SellSeg", src, *, interpret: bool = False):
-    """Run the compaction pass over the (rows, 128) lane-sum array."""
-    nblk = data.cidx.shape[0]
-    D = data.cwr
-    out = pl.pallas_call(
-        functools.partial(_seg_compact_kernel, D=D, nblocks=nblk,
-                          lmax=data.lmax),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(nblk,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.ANY),    # cidx (HBM)
-                pl.BlockSpec(memory_space=pltpu.ANY),    # lane sums
-            ],
-            out_specs=pl.BlockSpec((_SUB, _LANES), lambda b, *_: (b, 0),
-                                   memory_space=pltpu.VMEM),
-            scratch_shapes=[
-                pltpu.VMEM((2, _SUB, D, _LANES), src.dtype),
-                pltpu.VMEM((2, _SUB, _LANES), jnp.int32),
-                pltpu.SemaphoreType.DMA((2 * (_SUB + 1),)),
-            ],
-        ),
-        out_shape=jax.ShapeDtypeStruct((nblk * _SUB, _LANES), src.dtype),
-        interpret=interpret,
-    )(data.cws, data.cidx, src)
-    return out.reshape(-1)[:data.n]
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def sell_spmv_seg(data: SellSeg, x, *, interpret: bool = False):
-    """y = A @ x for a lane-compacted SELL pack: ONE static uniform-k=1
-    kernel pass + the windowed head-compaction pass."""
-    base = data.base
-    n = base.n
-    G = base.group_ptr.shape[0] - 1
-    W = base.win_rows * _LANES
-    x2 = jnp.pad(x, (0, G * _LANES - n + W)).reshape(-1, _LANES)
-    out = _sell_call(base, x2, interpret=interpret)
-    return _seg_compact_call(data, out, interpret=interpret)
 
 
 @jax.jit

@@ -1,24 +1,22 @@
-"""TPU-native sparse operator containers: ELL, block-ELL (BSR), banded.
+"""Sparse operator containers: ELL, block-ELL (BSR), banded, SELL.
 
 The reference outsources sparse matvecs entirely to Julia's
 ``SparseArrays.SparseMatrixCSC`` (used as an operator type in its tests,
 reference: test/basictests.jl:670, test/gpu/gputests.jl:41-58). A CSC/CSR
-scalar-indexed SpMV is the wrong shape for a TPU — variable-length rows
-defeat XLA tiling and the MXU entirely. This module provides three
-TPU-first containers, all of which satisfy the ``LinearOperator`` protocol
+scalar-indexed SpMV has variable-length rows, which defeat XLA's static
+shapes. This module provides fixed-width containers, all of which satisfy
+the ``LinearOperator`` protocol
 and hence plug into every Krylov-level API:
 
 * ``SparseELLOperator`` — padded ELLPACK: every row holds exactly ``w``
   (column, value) slots, padded with zeros. The matvec is one gather +
   one multiply-reduce, fully vectorized by XLA. The right default for
   unstructured sparsity with bounded row degree.
-* ``BlockELLOperator`` — blocked ELLPACK (the TPU analogue of BSR): dense
-  (br × bc) blocks, a fixed number per block-row. The matvec is a batch of
-  small dense GEMMs that land on the MXU; on TPU it runs as a Pallas
-  kernel with scalar-prefetched block-column indices
-  (ops/kernels/spmv.py), elsewhere as an einsum-of-gathered-blocks.
+* ``BlockELLOperator`` — blocked ELLPACK (BSR-style): dense (br × bc)
+  blocks, a fixed number per block-row. The matvec is an einsum of the
+  blocks with the gathered x blocks (a batch of small dense GEMMs).
 * ``BandedOperator`` — diagonal storage for stencil matrices (Laplacians,
-  advection-diffusion): the matvec is shift-multiply-add on the VPU with
+  advection-diffusion): the matvec is a fused shift-multiply-add with
   **zero gathers**, and the shifts become nearest-neighbor ``ppermute``
   halo exchanges when row-partitioned over a mesh (parallel/ops.py).
 
@@ -61,11 +59,8 @@ class SparseELLOperator(LinearOperator):
     data: (n, w) values, zero in padded slots.
     cols: (n, w) int32 column indices, 0 in padded slots (safe: value is 0).
 
-    Performance note: the matvec is gather-based. XLA's gather lowering on
-    TPU is very slow (~1 GB/s measured on v5e); on TPU prefer
-    ``BlockELLOperator`` (Pallas kernel, 120 GB/s), ``BandedOperator``, or
-    ``StencilOperator`` — use ELL on TPU only for genuinely unstructured
-    sparsity at small n, or on CPU where the gather vectorizes fine.
+    Performance note: the matvec is gather-based; structured matrices
+    are better served by ``BandedOperator`` or ``StencilOperator``.
     """
 
     data: jax.Array
@@ -140,15 +135,12 @@ class BlockELLOperator(LinearOperator):
     bcols:  (nbr, w) int32 block-column indices; 0 in padded slots.
 
     The matvec gathers x as (nbc, bc) block slices and contracts each
-    (br × bc) block on the MXU. On TPU backends the contraction runs as a
-    Pallas kernel (ops/kernels/spmv.py) with the block-column indices
-    scalar-prefetched so x-block loads are dynamic VMEM slices.
+    (br × bc) block in one batched einsum.
     """
 
     blocks: jax.Array
     bcols: jax.Array
     is_hermitian: bool = False
-    use_pallas: bool = True
 
     @property
     def block_shape(self):
@@ -170,12 +162,9 @@ class BlockELLOperator(LinearOperator):
 
     def matvec(self, x):
         nbr, w, br, bc = self.blocks.shape
-        if self.use_pallas and jax.default_backend() == "tpu":
-            from .kernels.spmv import blockell_spmv
-            return blockell_spmv(self.blocks, self.bcols, x)
         xb = x.reshape(-1, bc)[self.bcols]              # (nbr, w, bc) gather
         y = jnp.einsum("nwij,nwj->ni", self.blocks, xb,
-                       precision=jax.lax.Precision.HIGHEST)  # batched MXU GEMMs
+                       precision=jax.lax.Precision.HIGHEST)  # batched GEMMs
         return y.reshape(-1)
 
     def opnorm_hint(self):
@@ -194,11 +183,11 @@ class BlockELLOperator(LinearOperator):
         return A
 
     def tree_flatten(self):
-        return (self.blocks, self.bcols), (self.is_hermitian, self.use_pallas)
+        return (self.blocks, self.bcols), (self.is_hermitian,)
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        return cls(*children, is_hermitian=aux[0], use_pallas=aux[1])
+        return cls(*children, is_hermitian=aux[0])
 
     @classmethod
     def from_dense(cls, A, br: int, bc: Optional[int] = None,
@@ -380,13 +369,12 @@ class BandedOperator(LinearOperator):
 
 @jax.tree_util.register_pytree_node_class
 class SellOperator(LinearOperator):
-    """Unstructured sparse operator in SELL-window form — the vector-gather
-    Pallas SpMV container (ops/kernels/sell.py; VERDICT r1 item 1).
+    """Unstructured sparse operator in SELL-window form (ops/sell.py;
+    VERDICT r1 item 1).
 
     Build with ``SellOperator.from_coo`` / ``from_scipy`` (optionally
-    RCM-permuting for window locality via the native C++ RCM). matvec
-    dispatches to the Pallas kernel on TPU and the identical-math XLA
-    path elsewhere. Note: with ``rcm=True`` the operator acts in the
+    RCM-permuting for window locality via the native C++ RCM). matvec is
+    an XLA gather + segment sum over the pack. Note: with ``rcm=True`` the operator acts in the
     PERMUTED basis — use ``.perm`` to map vectors in/out, or keep the
     whole Krylov solve in permuted space (y = P·A·Pᵀ(P x)).
     """
@@ -402,7 +390,7 @@ class SellOperator(LinearOperator):
 
     @property
     def dtype(self):
-        from .kernels.sell import SellBucketed
+        from .sell import SellBucketed
         if isinstance(self.data, SellBucketed):
             return self.data.vals_dtype
         return self.data.vals.dtype
@@ -412,20 +400,12 @@ class SellOperator(LinearOperator):
         return self.data.nnz
 
     def matvec(self, x):
-        from .kernels.sell import (SellBucketed, SellSeg, sell_spmv,
-                                   sell_spmv_ref, sell_spmv_bucketed,
-                                   sell_spmv_bucketed_ref, sell_spmv_seg,
-                                   sell_spmv_seg_ref)
+        from .sell import (SellBucketed, SellSeg, sell_spmv_ref,
+                           sell_spmv_bucketed_ref, sell_spmv_seg_ref)
         if isinstance(self.data, SellSeg):
-            if jax.default_backend() == "tpu":
-                return sell_spmv_seg(self.data, x)
             return sell_spmv_seg_ref(self.data, x)
         if isinstance(self.data, SellBucketed):
-            if jax.default_backend() == "tpu":
-                return sell_spmv_bucketed(self.data, x)
             return sell_spmv_bucketed_ref(self.data, x)
-        if jax.default_backend() == "tpu":
-            return sell_spmv(self.data, x)
         return sell_spmv_ref(self.data, x)
 
     @staticmethod
@@ -440,7 +420,7 @@ class SellOperator(LinearOperator):
         return jnp.max(rowsum)
 
     def opnorm_hint(self):
-        from .kernels.sell import _LANES, _W, SellBucketed, SellSeg
+        from .sell import _LANES, _W, SellBucketed, SellSeg
         if isinstance(self.data, SellSeg):
             # lanes are row segments: per-lane |v| sums, then the same
             # per-row reassembly as the matvec (direct consecutive-lane
@@ -481,7 +461,7 @@ class SellOperator(LinearOperator):
                  mode: str | None = None, rcm: bool = False,
                  is_hermitian: bool = False, max_chunks: int = 4,
                  uniform_k: bool | None = None):
-        from .kernels.sell import sell_pack
+        from .sell import sell_pack
         rows = np.asarray(rows)
         cols = np.asarray(cols)
         vals = np.asarray(vals)
@@ -507,10 +487,10 @@ class SellOperator(LinearOperator):
                     "use mode='seg', the degree-layout-blind container "
                     f"(underlying pack error: {e})") from None
         if mode == "seg":
-            from .kernels.sell import sell_pack_seg
+            from .sell import sell_pack_seg
             data = sell_pack_seg((rows, cols, vals), n, dtype=dtype)
         elif mode == "bucketed":
-            from .kernels.sell import sell_pack_bucketed
+            from .sell import sell_pack_bucketed
             data = sell_pack_bucketed((rows, cols, vals), n, dtype=dtype,
                                       window=window)
         else:
@@ -538,19 +518,15 @@ class SortedSellOperator(LinearOperator):
     (VERDICT r4 #5).
 
     Scattered high-degree rows defeat ``SellBucketed``'s 128-row degree
-    classes (every group holds a top-degree row → uniform-k degenerate,
-    ~63 GB/s) and cap the lane-compacted ``seg`` pack at ~100 GB/s (the
-    hard 1024-column gather window + 1.4× lane inflation,
-    BENCHMARKS.md r4). This container converts scattered → clustered by
+    classes (every group holds a top-degree row → uniform-k degenerate)
+    and inflate the lane-compacted ``seg`` pack (the 1024-column gather
+    window + 1.4× lane inflation). This container converts scattered → clustered by
     a STABLE degree-sort row permutation P applied as a conjugation:
 
-        A_s = P A Pᵀ   (clustered degrees → the 170 GB/s bucketed pack)
+        A_s = P A Pᵀ   (clustered degrees → the bucketed pack)
         A x = Pᵀ · A_s · (P x)
 
-    with P and Pᵀ themselves packed as degree-1 SELL matrices — the
-    windowed Pallas gather machinery applies the 10M-element permutation
-    in ~one 2n pass (an XLA element gather at this size costs ~150 ms —
-    the known trap). ``matvec`` is the 3-SpMV conjugated form (correct
+    with P and Pᵀ themselves packed as degree-1 SELL matrices. ``matvec`` is the 3-SpMV conjugated form (correct
     everywhere); the polynomial/Krylov drivers HOIST the conjugation to
     once per solve (exp(P A Pᵀ) = P exp(A) Pᵀ — true for every matrix
     function), so an m-iteration solve pays m clustered SpMVs + 2
@@ -614,8 +590,8 @@ class SortedSellOperator(LinearOperator):
         # The sort is WINDOW-LOCAL (blocks of ``sort_window`` rows), not
         # global: a global degree sort gathers each 128-row group's rows
         # from all over the matrix, shattering the column locality every
-        # SELL pack depends on (the packers reject the resulting spans —
-        # measured, BENCHMARKS.md r5). Window-local sorting bounds the
+        # SELL pack depends on (the packers reject the resulting spans).
+        # Window-local sorting bounds the
         # conjugated span by ~3·sort_window (a group's columns touch
         # the window and both neighbours; sort_window is a multiple of
         # 128 so groups never straddle windows), which must fit the
@@ -626,7 +602,7 @@ class SortedSellOperator(LinearOperator):
         # that caps the seg pack at ~100 GB/s — the r4 floor, now an
         # experiment rather than an analysis) and should use
         # mode="seg". The pack raises with that guidance.
-        from .kernels.sell import sell_pack_bucketed
+        from .sell import sell_pack_bucketed
         deg = np.bincount(rows, minlength=n)
         order = np.empty(n, np.int64)
         for w0 in range(0, n, sort_window):
@@ -668,7 +644,7 @@ class SortedSellOperator(LinearOperator):
     def load(cls, prefix: str, *,
              is_hermitian: bool = False) -> "SortedSellOperator":
         import numpy as _np
-        from .kernels.sell import SellBucketed
+        from .sell import SellBucketed
         inner = SellOperator(SellBucketed.load(f"{prefix}_inner.npz"),
                              is_hermitian=is_hermitian)
         pfwd = SellOperator(SellBucketed.load(f"{prefix}_pfwd.npz"))
@@ -726,19 +702,9 @@ class HybridOperator(LinearOperator):
     RCM'd PDE/mesh-class matrices concentrate most nonzeros on a handful
     of DENSE diagonals (self + regular-neighbor couplings); only the
     irregular tail is genuinely unstructured. The hybrid matvec runs the
-    dense diagonals through the shift-based ``BandedOperator`` kernel
-    (~236 GB/s measured at 10M rows) and only the tail through the
-    VPU-gather SELL kernel — moving the bulk of the traffic off the
-    gather path entirely instead of fighting its measured per-tile
-    ceiling. Build with ``hybrid_from_scipy``.
-
-    Measured domain boundary (benchmarks/bench_hybrid.py, 10M rows):
-    when the WHOLE matrix already fits SELL's uniform d<=8 fast path,
-    the hybrid is a regression (7.46 ms vs 4.90 ms pure SELL) — SELL's
-    low-degree cost is tile-count bound, so removing nnz does not remove
-    tiles and the banded kernel re-traverses all n rows. Use the hybrid
-    only when maxdeg > 8 and the split brings the residual under the
-    d<=8 static schedule (see BENCHMARKS.md).
+    dense diagonals through the shift-based ``BandedOperator`` matvec and
+    only the tail through the SELL gather — moving the bulk of the
+    traffic off the gather path. Build with ``hybrid_from_scipy``.
 
     Reference context: the matvec is THE device kernel of the Krylov
     stack (src/arnoldi.jl:182); this container slots under every action/

@@ -9,9 +9,7 @@ coefficients and applying shifts on the d-D grid eliminates that stream:
     y = Σ_k c_k · shift(x, offset_k)      (Dirichlet: pad zeros)
 
 and every shift is an axis slice of the padded grid — XLA fuses the whole
-stencil into one pass over x. Measured on a v5e at 216³ (10.1M rows):
-0.27 ms/matvec vs 4.2 ms for diagonal storage (15×) — SpMV traffic is just
-x + y.
+stencil into one pass over x, so SpMV traffic is just x + y.
 
 The flat vector interface is preserved (matvec takes/returns (n,)), so the
 operator drops into every Krylov API unchanged.
@@ -147,8 +145,7 @@ class VariableStencilOperator(LinearOperator):
     generic SparseMatrixCSC operators (src/arnoldi.jl:182). Storage is
     (k, n): the same footprint as diagonal (DIA) storage, but organized
     on the grid so matvec is k fused shifted elementwise multiplies
-    (XLA pad+slice — no gather), and the 3-D 7-point case feeds the
-    fused Lanczos plane sweep (ops/kernels/lanczos_fused.py).
+    (XLA pad+slice — no gather).
 
     coeff_fields[k][cell] multiplies the neighbor at ``cell + offsets[k]``
     when forming row ``cell`` (out-of-grid neighbors read zero —
@@ -320,9 +317,8 @@ def advection_diffusion_3d_stencil(nz: int, ny: int, nx: int,
                                    peclet: float = 10.0,
                                    dtype=jnp.float64) -> StencilOperator:
     """3-D diffusion + upwind x-advection, ∇²u + Pe·u_x, Dirichlet —
-    the ASYMMETRIC constant 7-point operator of the fused non-Hermitian
-    recurrence path (recurrence_apply_fused; Leja/Faber drivers at
-    scale). h = 1/(nx+1) along every axis."""
+    the ASYMMETRIC constant 7-point operator of the non-Hermitian
+    Leja/Faber drivers at scale. h = 1/(nx+1) along every axis."""
     h = 1.0 / (nx + 1)
     dcoef = 1.0 / h ** 2
     acoef = peclet / h

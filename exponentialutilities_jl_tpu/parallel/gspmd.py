@@ -48,7 +48,7 @@ def shard_operator(op: LinearOperator, mesh: Mesh,
         return BlockELLOperator(
             jax.device_put(op.blocks, sh),
             jax.device_put(op.bcols, NamedSharding(mesh, P(axis, None))),
-            is_hermitian=op.is_hermitian, use_pallas=False)
+            is_hermitian=op.is_hermitian)
     if isinstance(op, DenseOperator):
         return DenseOperator(
             jax.device_put(op.A, NamedSharding(mesh, P(axis, None))),

@@ -2,12 +2,12 @@
 
 The whole Krylov iteration runs inside ONE ``shard_map`` region per call:
 the basis V lives row-sharded ((m+1, n_local) per device), the stencil
-matvec exchanges halos over ICI (parallel/ops.py), every orthogonalization
-step costs exactly one ``psum`` (batched CGS dots, ops/krylov.py), and the
-m×m reduced problem (tridiagonal eigensolve / Padé exp) is computed
-redundantly-replicated on every device — the TPU mapping of the reference's
-device/host split (src/arnoldi.jl:293-296: large O(n) on device, small
-O(m²) on host).
+matvec exchanges halos with its neighbours (parallel/ops.py), every
+orthogonalization step costs exactly one ``psum`` (batched CGS dots,
+ops/krylov.py), and the m×m reduced problem (tridiagonal eigensolve /
+Padé exp) is computed redundantly-replicated on every device — the mesh
+mapping of the reference's device/host split (src/arnoldi.jl:293-296:
+large O(n) on device, small O(m²) on host).
 
 This is the layer the reference does not have (it is single-process;
 SURVEY.md §2 "Parallelism & distributed-communication inventory").
@@ -62,43 +62,17 @@ def _sharded_call(op, mesh: Mesh, axis_name: str | None, body):
     return run, params
 
 
-def _fused_shard_ok(op, mesh, axis, b, *, hermitian: bool,
-                    fused=None) -> tuple:
-    """(plan, interpret) when the shard-local fused sweep applies, else
-    (None, False): 2-D/3-D constant StencilOperator, f32 data, plane
-    budget feasible. AUTO mode (fused=None) engages only on a real TPU;
-    ``fused=True`` forces the plan anywhere — on non-TPU backends the
-    kernel then runs in interpret mode (how the CPU-mesh tests exercise
-    the REAL sharded code path; interpret is far too slow for auto)."""
-    from .stencil_fused import fused_shard_plan
-
-    on_tpu = jax.default_backend() == "tpu"
-    if jnp.asarray(b).dtype != jnp.float32 or (fused is None
-                                               and not on_tpu):
-        return None, False
-    try:
-        plan = fused_shard_plan(op, mesh, axis, hermitian=hermitian)
-    except (ValueError, TypeError):
-        return None, False
-    return plan, not on_tpu
-
-
 def expv_sharded(t, op, b, mesh: Mesh, *, m: int = 30,
                  tol: float = 1e-7, iop: int = 0, reorth: bool = True,
                  hermitian: bool | None = None,
-                 axis_name: str | None = None, two_pass: bool = False,
-                 fused: bool | None = None):
+                 axis_name: str | None = None, two_pass: bool = False):
     """``exp(tA) b`` with A row-partitioned over ``mesh``.
 
     ``b`` may be a global (replicated or host) array or already sharded;
     the result is row-sharded the same way. One compiled program covers
     any device count of the same mesh shape. ``two_pass=True`` uses the
     storage-free Lanczos (Hermitian only) — per-shard memory O(n_local)
-    instead of O(m·n_local), the scale-out form for huge n. For 3-D
-    constant stencils, two-pass auto-upgrades both passes to the
-    shard-local FUSED plane sweep (parallel/stencil_fused.py — halo
-    layers exchanged by ``ppermute``, interior never repacked);
-    ``fused=False`` forces the XLA recurrence.
+    instead of O(m·n_local), the scale-out form for huge n.
     """
     from ..models.expv import build_subspace
 
@@ -107,31 +81,8 @@ def expv_sharded(t, op, b, mesh: Mesh, *, m: int = 30,
     t = jnp.asarray(t)
     if two_pass and not herm:
         raise NotImplementedError("two_pass requires a Hermitian operator")
-    if fused and not two_pass:
-        raise ValueError(
-            "fused=True applies to the two-pass Lanczos body "
-            "(two_pass=True) — the basis-building expv has no fused "
-            "form; for single-pass fused actions use "
-            "expv_chebyshev_sharded")
-
-    plan = interp = None
-    if two_pass and fused is not False:
-        # complex t promotes the replay coefficients — f32 sweeps stay
-        # real (an explicit fused=True request still raises)
-        complex_t = bool(jnp.iscomplexobj(t))
-        if not complex_t:
-            plan, interp = _fused_shard_ok(op, mesh, axis, b,
-                                           hermitian=True, fused=fused)
-        if plan is None and fused:
-            reason = ("complex t (the f32 sweep replay is real)"
-                      if complex_t else f"operator {type(op).__name__}")
-            raise ValueError("fused=True: no shard-local fused sweep "
-                             f"for {reason}")
 
     def body(lop, b_local):
-        if two_pass and plan is not None:
-            return _expv_two_pass_fused_sharded(plan, b_local, t, m,
-                                                tol=tol, interpret=interp)
         if two_pass:
             from ..models.expv import _expv_two_pass
             return _expv_two_pass(lop, b_local, t, m, axis_name=axis)
@@ -141,27 +92,6 @@ def expv_sharded(t, op, b, mesh: Mesh, *, m: int = 30,
 
     run, params = _sharded_call(op, mesh, axis, body)
     return run(params, shard_vector(b, mesh, axis))
-
-
-def _expv_two_pass_fused_sharded(plan, b_local, t, m: int,
-                                 tol: float = 1e-7,
-                                 interpret: bool = False):
-    """Storage-free sharded Hermitian expv with BOTH passes as
-    shard-local fused plane sweeps; the m×m reduced tridiagonal
-    exponential is computed replicated per shard from the psum'd
-    (α, β) — the same device split as ``_expv_two_pass``."""
-    from ..models.expv import _lanczos_reduced_coeffs
-    from .stencil_fused import (lanczos_coeffs_fused_sharded,
-                                lanczos_replay_fused_sharded)
-
-    b_local = jnp.asarray(b_local)
-    t = jnp.asarray(t)
-    alphas, betas, beta0, m_used, broke = lanczos_coeffs_fused_sharded(
-        plan, b_local, m, tol=tol, interpret=interpret)
-    coeffs = _lanczos_reduced_coeffs(alphas, betas, beta0, t)
-    out = lanczos_replay_fused_sharded(plan, b_local, coeffs, tol=tol,
-                                       interpret=interpret)
-    return jnp.where(beta0 > 0, out, jnp.zeros_like(out))
 
 
 def phiv_sharded(t, op, b, k: int, mesh: Mesh, *,
@@ -194,22 +124,13 @@ def phiv_sharded(t, op, b, k: int, mesh: Mesh, *,
 
 def expv_chebyshev_sharded(t, op, b, mesh: Mesh, *, bounds=None,
                            tol: float = 1e-7, m: int | None = None,
-                           axis_name: str | None = None,
-                           fused: bool | None = None):
+                           axis_name: str | None = None):
     """Row-partitioned Chebyshev ``exp(tA) b`` (models/chebyshev.py) —
     the ideal sharded action: the recurrence has NO inner products, so
     the per-iteration communication is exactly the operator's halo
     exchange (one ``ppermute`` for banded/stencil) and nothing else.
     The Krylov paths pay one ``psum`` latency per iteration on top;
     here the collective count per iteration is the matvec's alone.
-
-    For 3-D constant stencils (real coefficients, f32) the per-shard
-    recurrence auto-upgrades to the shard-local FUSED plane sweep
-    (parallel/stencil_fused.py): state stays ghost-resident across the
-    whole recurrence, the halo exchange is 2·h0 grid layers each way
-    per sweep via ``ppermute``, and the interior is never repacked —
-    per-chip throughput matches the single-device fused kernel
-    (BENCHMARKS.md r5). ``fused=False`` forces the XLA pad/slice scan.
 
     ``bounds`` defaults to the GLOBAL operator's Gershgorin hint
     (exact for stencil/banded containers — no probe run needed).
@@ -240,72 +161,8 @@ def expv_chebyshev_sharded(t, op, b, mesh: Mesh, *, bounds=None,
         b.dtype, jnp.complex64 if np.iscomplexobj(full) else b.dtype)
     coeffs = jnp.asarray(full, cdt)
 
-    from ..ops.stencil import VariableStencilOperator
-    if isinstance(op, VariableStencilOperator):
-        # variable-coefficient stencils shard ONLY through the fused
-        # sweep under shard_map (the scan path has no per-shard variable
-        # view — GSPMD covers it otherwise); coefficient halos are
-        # exchanged once per solve.
-        if (fused is False or np.iscomplexobj(full)
-                or b.dtype != jnp.float32):
-            raise TypeError(
-                "expv_chebyshev_sharded: VariableStencilOperator shards "
-                "through the fused sweep only (fused must not be False, "
-                "real coefficients, f32 data) — or use the GSPMD route "
-                "(parallel/gspmd.shard_operator)")
-        from jax.sharding import NamedSharding
-        from .stencil_fused import (FusedShardPlanVar, chebyshev_rows,
-                                    recurrence_apply_fused_sharded_var)
-        try:
-            plan = FusedShardPlanVar(op.grid_shape, tuple(op.offsets),
-                                     mesh.shape[axis], axis)
-        except ValueError:
-            if fused:
-                raise
-            raise TypeError(
-                "expv_chebyshev_sharded: this VariableStencilOperator "
-                "does not fit the fused sharded sweep's VMEM budget — "
-                "use the GSPMD route (parallel/gspmd.shard_operator)")
-        interp = jax.default_backend() != "tpu"
-        if interp and not fused:
-            raise TypeError(
-                "expv_chebyshev_sharded: variable fused sharding needs "
-                "a TPU backend (pass fused=True to force interpret "
-                "mode, e.g. in tests)")
-        rows = chebyshev_rows(coeffs, c, h, b.dtype)
-        fields = jax.device_put(
-            op.coeff_fields.astype(b.dtype),
-            NamedSharding(mesh, P(None, axis)))
-
-        @jax.jit
-        @functools.partial(jax.shard_map, mesh=mesh,
-                           in_specs=(P(None, axis), P(axis)),
-                           out_specs=P(axis))
-        def run_var(cf_local, b_local):
-            return recurrence_apply_fused_sharded_var(
-                plan, cf_local, b_local, rows, interpret=interp)
-
-        return run_var(fields, shard_vector(b, mesh, axis))
-
-    plan = interp = None
-    if fused is not False and not np.iscomplexobj(full):
-        plan, interp = _fused_shard_ok(op, mesh, axis, b, hermitian=True,
-                                       fused=fused)
-    if plan is None and fused:
-        raise ValueError("fused=True: no shard-local fused sweep for "
-                         f"this operator ({type(op).__name__})")
-
-    if plan is not None:
-        from .stencil_fused import (chebyshev_rows,
-                                    recurrence_apply_fused_sharded)
-        rows = chebyshev_rows(coeffs, c, h, b.dtype)
-
-        def body(lop, b_local):
-            return recurrence_apply_fused_sharded(plan, b_local, rows,
-                                                  interpret=interp)
-    else:
-        def body(lop, b_local):
-            return _chebyshev_apply_scan(lop, b_local, coeffs, c, 1.0 / h)
+    def body(lop, b_local):
+        return _chebyshev_apply_scan(lop, b_local, coeffs, c, 1.0 / h)
 
     run, params = _sharded_call(op, mesh, axis, body)
     return run(params, shard_vector(b, mesh, axis))
@@ -318,7 +175,7 @@ def make_expv_step(op, mesh: Mesh, *, m: int = 30,
     ``step(t, diags_sharded, b_sharded)`` is the fully jitted sharded expv.
 
     This is the production-serving shape: one compile, then repeated calls
-    with donated/resident shards (the TPU analogue of the reference's
+    with donated/resident shards (the analogue of the reference's
     cache-reuse contract, test/basictests.jl:944-947).
     """
     from ..models.expv import build_subspace

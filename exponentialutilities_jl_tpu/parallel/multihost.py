@@ -1,35 +1,38 @@
-"""Multi-host entry points: global meshes spanning hosts (DCN) × chips (ICI).
+"""Multi-host entry points: global meshes spanning hosts × cards.
 
 The reference is single-process (SURVEY.md §2: no distributed backend);
-this module is the framework's multi-host story, designed around the
-TPU-pod network hierarchy:
+this module is the framework's multi-host story, designed around a
+two-level network:
 
-* **ICI** (intra-slice, ~100s GB/s, µs latency) carries the per-Krylov-step
+* **NVLink** within a host (every card reaches every other at the same
+  rate, hundreds of GB/s, µs latency) carries the per-Krylov-step
   collectives: halo ``ppermute`` for the stencil/banded matvec and the one
   Gram–Schmidt ``psum`` per step.
-* **DCN** (inter-slice host network, ~10s GB/s, ~100 µs latency) must NOT
-  sit inside the per-step latency path. Two supported layouts:
+* **The network between hosts** (tens of GB/s, tens of µs latency) must
+  NOT sit inside the per-step latency path. Two supported layouts:
 
-  1. ``make_global_mesh`` — one logical row axis spanning every chip of
+  1. ``make_global_mesh`` — one logical row axis spanning every card of
      every host, **process-major ordered** so the 1-D halo exchange's
-     neighbor hops stay on ICI except at the host boundary (one DCN hop
-     per host pair per matvec — bandwidth-bound, overlappable), while the
-     per-step ``psum`` crosses DCN once per Lanczos step. Right when a
-     single state vector exceeds one host's HBM.
-  2. ``make_host_data_mesh`` — 2-D (hosts="data") × (chips="shard"):
-     operator rows sharded over ICI only; independent right-hand sides
-     (or φ orders / time batches) data-parallel over DCN. The Krylov body
-     then has NO DCN collective at all — the recommended production
-     layout whenever the state fits one host (the scaling-book recipe:
-     put the latency-critical axis on ICI, the embarrassingly-parallel
-     axis on DCN).
+     neighbor hops stay inside a host except at the host boundary (one
+     network hop per host pair per matvec — bandwidth-bound,
+     overlappable), while the per-step ``psum`` crosses the network once
+     per Lanczos step. Right when a single state vector exceeds one
+     host's device memory.
+  2. ``make_host_data_mesh`` — 2-D (hosts="data") × (cards="shard"):
+     operator rows sharded within a host only; independent right-hand
+     sides (or φ orders / time batches) data-parallel across hosts. The
+     Krylov body then has NO cross-host collective at all — the
+     recommended production layout whenever the state fits one host
+     (put the latency-critical axis on NVLink, the embarrassingly
+     parallel axis on the network).
 
 ``initialize_distributed`` wires up ``jax.distributed`` from explicit
 arguments or the standard environment (no-op when single-process). All
 mesh constructors work unchanged in a single process — on the virtual
 ``xla_force_host_platform_device_count`` CPU mesh they emulate the
 multi-host shape, so the full program (shardings + collectives) is
-compile-validated without a pod (tests/test_parallel.py, __graft_entry__).
+compile-validated without a cluster (tests/test_parallel.py,
+__graft_entry__).
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ def initialize_distributed(coordinator_address: str | None = None,
     """Initialize ``jax.distributed`` for a multi-host run.
 
     Arguments default to the standard cluster environment variables
-    (``JAX_COORDINATOR_ADDRESS`` etc. / TPU pod metadata), exactly as
+    (``JAX_COORDINATOR_ADDRESS`` etc.), exactly as
     ``jax.distributed.initialize`` resolves them. Safe to call when
     already initialized or single-process (returns False without
     touching anything in that case).
@@ -99,11 +102,11 @@ def _device_grid(n_hosts: int | None):
 
 def make_global_mesh(n_hosts: int | None = None,
                      axis_name: str = "shard") -> Mesh:
-    """ONE logical row axis over every chip of every host (layout 1).
+    """ONE logical row axis over every card of every host (layout 1).
 
     Process-major ordering means consecutive mesh positions are
-    consecutive chips of one host: a 1-D nearest-neighbor halo exchange
-    crosses DCN only at host boundaries. Drop-in wherever a 1-D mesh is
+    consecutive cards of one host: a 1-D nearest-neighbor halo exchange
+    leaves the host only at host boundaries. Drop-in wherever a 1-D mesh is
     accepted (``expv_sharded``, ``make_expv_step``, ``shard_operator``).
     """
     grid = _device_grid(n_hosts)
@@ -113,12 +116,12 @@ def make_global_mesh(n_hosts: int | None = None,
 def make_host_data_mesh(n_hosts: int | None = None,
                         data_axis: str = "data",
                         shard_axis: str = "shard") -> Mesh:
-    """2-D (hosts → ``data``) × (chips → ``shard``) mesh (layout 2).
+    """2-D (hosts → ``data``) × (cards → ``shard``) mesh (layout 2).
 
-    Shard operator rows over ``shard`` (ICI), batch independent RHS /
-    workloads over ``data`` (DCN). With ``expv_batched`` /
+    Shard operator rows over ``shard`` (within a host), batch independent
+    RHS / workloads over ``data`` (across hosts). With ``expv_batched`` /
     ``shard_operator`` this runs the whole Krylov iteration without any
-    DCN collective in the loop body.
+    cross-host collective in the loop body.
     """
     grid = _device_grid(n_hosts)
     if grid.shape[0] == 1 and jax.process_count() == 1 and n_hosts is None:

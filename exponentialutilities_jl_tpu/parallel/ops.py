@@ -9,9 +9,10 @@ shards/replicated). Collectives:
 
 * Gram–Schmidt dots and norms → one ``psum`` per Krylov step (ops/krylov.py
   ``axis_name`` path — the CGS/CGS2 batched-dot design exists precisely so
-  the sharded iteration costs a single all-reduce, riding ICI).
+  the sharded iteration costs a single all-reduce).
 * Stencil (banded) matvec → nearest-neighbor halo exchange via
-  ``lax.ppermute``, i.e. ICI neighbor hops, never an all-gather.
+  ``lax.ppermute``, i.e. neighbor copies over NVLink, never an
+  all-gather.
 
 These building blocks are *shard_map-inner* components; user-facing entry
 points that close over the mesh live in parallel/krylov.py.

@@ -7,7 +7,7 @@ host-side scalar: the per-iteration communication is exactly the
 operator's halo exchange (one ``lax.ppermute`` for banded/stencil
 containers) and NOTHING else — zero all-reduces, the same collective
 census as ``expv_chebyshev_sharded`` (parallel/krylov.py), but without
-its Hermitian restriction. A pod user running advection–diffusion
+its Hermitian restriction. A multi-card user running advection–diffusion
 (non-Hermitian) gets the library's flagship action at halo-only cost.
 
 Design: the host-side setup (Gershgorin interval / FoV ellipse, divided
@@ -27,12 +27,9 @@ XLA partitions every program, inserting the halo collectives itself.
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, PartitionSpec as P
+from jax.sharding import Mesh
 
 from ..models.faber import (_check_finite_faber, _CROUZEIX, _faber_apply,
                             _faber_expv_setup)
@@ -49,19 +46,9 @@ def _run_sharded(op, mesh: Mesh, axis: str, body, b):
     return run(params, shard_vector(b, mesh, axis))
 
 
-def _fused_poly_plan(op, mesh, axis, b, fused):
-    """(plan, interpret) for the shard-local fused recurrence when the
-    operator/dtype qualify (constant stencil, f32, real rows) — the
-    asymmetric-coefficient twin of the chebyshev gate."""
-    from .krylov import _fused_shard_ok
-    return _fused_shard_ok(op, mesh, axis, b, hermitian=False,
-                           fused=fused)
-
-
 def expv_leja_sharded(t, op, b, mesh: Mesh, *, interval=None,
                       tol: float = 1e-7, m: int | None = None,
-                      max_z: float = 40.0, axis_name: str | None = None,
-                      fused: bool | None = None):
+                      max_z: float = 40.0, axis_name: str | None = None):
     """Row-partitioned Leja-Newton ``exp(tA) b`` (models/leja.py) for
     NON-HERMITIAN operators: coefficients on host from the GLOBAL
     operator (Gershgorin ``real_interval`` works on the banded/stencil
@@ -77,20 +64,6 @@ def expv_leja_sharded(t, op, b, mesh: Mesh, *, interval=None,
         return shard_vector(jnp.exp(jnp.asarray(float(t) * c, b.dtype))
                             * b, mesh, axis)
     m_used = len(d)
-    plan, interp = _fused_poly_plan(op, mesh, axis, b, fused)
-    if plan is not None and not np.iscomplexobj(d):
-        from ..models.leja import _newton_rows
-        from .stencil_fused import recurrence_apply_fused_sharded
-        rows = jnp.asarray(_newton_rows(d, xi, c, 1.0 / s), b.dtype)
-
-        def body(lop, b_local):
-            w = b_local
-            for _ in range(q):
-                w = recurrence_apply_fused_sharded(plan, w, rows,
-                                                   interpret=interp)
-            return w
-
-        return _run_sharded(op, mesh, axis, body, b)
     dj = jnp.asarray(d, jnp.result_type(b.dtype))
     xj = jnp.asarray(xi, jnp.finfo(b.dtype).dtype)
 
@@ -103,8 +76,7 @@ def expv_leja_sharded(t, op, b, mesh: Mesh, *, interval=None,
 def expv_faber_sharded(t, op, b, mesh: Mesh, *, ellipse=None,
                        tol: float = 1e-7, m: int | None = None,
                        max_z: float = 512.0,
-                       axis_name: str | None = None,
-                       fused: bool | None = None):
+                       axis_name: str | None = None):
     """Row-partitioned Faber-series ``exp(tA) b`` (models/faber.py):
     the long-horizon non-Hermitian action (z ≥ 500 per substep) at
     halo-only communication cost. Carries the full failure protocol of
@@ -124,25 +96,6 @@ def expv_faber_sharded(t, op, b, mesh: Mesh, *, ellipse=None,
     cdt = (jnp.result_type(b.dtype, jnp.complex64)
            if np.iscomplexobj(a) or np.iscomplexobj(b)
            else jnp.result_type(b.dtype))
-    plan, interp = _fused_poly_plan(op, mesh, axis, b, fused)
-    if plan is not None and not np.iscomplexobj(a):
-        from ..models.faber import _faber_rows
-        from .stencil_fused import recurrence_apply_fused_sharded
-        rows = jnp.asarray(_faber_rows(a[:m_used], c, 1.0 / gamma, rho),
-                           b.dtype)
-
-        def body_f(lop, b_local):
-            w = b_local
-            for _ in range(q):
-                w = recurrence_apply_fused_sharded(plan, w, rows,
-                                                   interpret=interp)
-            return w
-
-        out = _run_sharded(op, mesh, axis, body_f, b)
-        bnorm = float(jnp.linalg.norm(b))
-        log_bound = q * (np.log(_CROUZEIX) + log_sup) \
-            + np.log(max(bnorm, 1e-300))
-        return _check_finite_faber(out, "expv_faber_sharded", log_bound)
     aj = jnp.asarray(a[:m_used], cdt)
 
     def body(lop, b_local):

@@ -3,15 +3,15 @@
 The d-D grid is sharded along its outermost axis (axis 0); each shard owns
 a contiguous slab of planes. A stencil offset with axis-0 component q
 needs up to h0 = max|q| halo planes from each ring neighbor — exchanged
-with ``lax.ppermute`` (one ICI hop; missing neighbors at the global
+with ``lax.ppermute`` (one neighbor copy; missing neighbors at the global
 boundary contribute zeros, which is exactly the Dirichlet truncation).
 Within-plane offsets are handled by zero-padding the local slab, same as
 the single-device ``StencilOperator``.
 
 This is the scalable form of BASELINE config #5 (10M-row 3-D Laplacian
-row-partitioned with halo exchange): per-chip traffic is x + y + two
-boundary planes, and the halo is overlapped with nothing yet — a future
-Pallas fusion can hide it behind the interior compute.
+row-partitioned with halo exchange): per-card traffic is x + y + two
+boundary planes, and the halo is not yet overlapped with the interior
+compute.
 """
 
 from __future__ import annotations

@@ -1,19 +1,44 @@
-"""Ahead-of-time warmup — the TPU analogue of the reference's precompile
-workload (reference: src/precompile.jl:1-55).
+"""Ahead-of-time warmup — the JAX analogue of the reference's precompile
+workload (reference: src/precompile.jl:1-55) — and the persistent
+compilation cache.
 
 The reference precompiles `exponential!`, `expv`, `phiv` for Float64 so the
 first user call is fast; here the equivalent cost is XLA compilation, paid
 once per (shape, dtype, static-config) signature. ``warmup`` traces and
 compiles the hot entry points for the signatures you expect to serve, so
-production first-call latency is data-transfer only.
+production first-call latency is data-transfer only. ``use_compile_cache``
+keeps compiled programs on disk across processes.
 """
 
 from __future__ import annotations
 
+import os
+
 import jax
 import jax.numpy as jnp
 
-__all__ = ["warmup"]
+__all__ = ["warmup", "use_compile_cache", "DEFAULT_CACHE_DIR"]
+
+# Fixed path inside the checkout (listed in .gitignore): the cache key
+# includes the directory, so a path that moved between runs never hits.
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), ".jax_cache")
+
+
+def use_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache and return its directory.
+
+    ``JAX_COMPILATION_CACHE_DIR``, when set, is honoured as JAX reads it and
+    no other directory is configured; otherwise the cache lives in
+    ``DEFAULT_CACHE_DIR``. Every compiled program is cached, however fast
+    its compile."""
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if not path:
+        path = DEFAULT_CACHE_DIR
+        jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+    return path
 
 
 def warmup(n: int = 64, m: int = 30, k: int = 2, dtype=jnp.float32,

@@ -1,6 +1,6 @@
 """Matrix-free linear-operator protocol.
 
-TPU-native analogue of the reference's matrix-free operator interface
+The analogue of the reference's matrix-free operator interface
 (reference: docs/src/interfaces.md, test/basictests.jl:784-814): any object
 exposing ``shape``, ``dtype``, a traceable ``matvec`` and optional
 ``is_hermitian`` / ``opnorm_hint`` participates in every Krylov-level API
@@ -57,7 +57,7 @@ class LinearOperator:
 
 @jax.tree_util.register_pytree_node_class
 class DenseOperator(LinearOperator):
-    """Dense matrix wrapped as an operator. Matvec is one MXU GEMV.
+    """Dense matrix wrapped as an operator. Matvec is one GEMV.
 
     ``is_hermitian`` may be passed explicitly (no check runs), or left as
     ``None`` for **lazy** detection: the O(n²) symmetry check runs at most
@@ -244,7 +244,7 @@ class JacobianOperator(LinearOperator):
     same compiled Krylov programs (``f`` rides in the static slot — keep
     passing the same function object).
 
-    This is the TPU analogue of the reference's pattern of handing
+    This is the analogue of the reference's pattern of handing
     OrdinaryDiffEq Jacobian operators to expv/phiv/kiops (reference
     README.md:16 — the package exists to serve exponential integrators).
     """

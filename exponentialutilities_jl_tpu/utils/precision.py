@@ -1,14 +1,12 @@
 """Matmul-precision control.
 
-On TPU, XLA's default matmul precision for float32 is bf16-grade (one MXU
-pass) — fine for neural nets, catastrophic for a numerics library
-(measured: degree-13 Padé exp at 6.7e-3 relative error instead of ~1e-6).
-Every compute-path function in this package is wrapped with
-``mxu_full_precision`` so its matmuls are traced under
-``jax.default_matmul_precision("highest")`` (6-pass f32 on the MXU).
-Users who explicitly want bf16-grade speed can set a lower precision
-inside their own ``jax.default_matmul_precision`` context — this wrapper
-only sets the default for the library's traces.
+On an NVIDIA GPU, XLA may run a float32 matrix product on the tensor
+cores in TF32, which keeps about three decimal digits — fine for neural
+nets, far too coarse for a numerics library (a degree-13 Padé exp or a
+CGS2 Gram product would lose the f32 tolerances). Every compute-path
+function in this package is wrapped with ``mxu_full_precision`` so its
+matmuls are traced under ``jax.default_matmul_precision("highest")``:
+true float32 (and float64) products, on any backend.
 """
 
 from __future__ import annotations

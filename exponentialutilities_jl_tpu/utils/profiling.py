@@ -1,5 +1,5 @@
-"""Optional profiling hooks (SURVEY §5: the reference has only `verbose`
-prints and stats tuples; the TPU build adds `jax.profiler` integration).
+"""Profiling hooks (SURVEY §5: the reference has only `verbose` prints and
+stats tuples; this build adds `jax.profiler` integration).
 
 Usage:
 
@@ -9,48 +9,52 @@ Usage:
         with annotate("expv-production"):
             w = expv(t, op, b, m=30)
 
-Both are no-ops (with a debug log) when profiling is unavailable on the
-backend — e.g. some remote-PJRT transports don't support the profiler —
-so library code and user scripts can leave them in unconditionally.
+A profiler that cannot start raises: a measurement that silently records
+nothing is worse than one that fails.
+
+``timed`` is the one warm-time loop of ``chip_smoke.py`` and ``bench.py``.
 """
 
 from __future__ import annotations
 
 import contextlib
-import logging
+import statistics
+import time
 
 import jax
 
-__all__ = ["trace", "annotate"]
-
-_log = logging.getLogger(__name__)
+__all__ = ["trace", "annotate", "timed"]
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Capture a profiler trace of the enclosed block into ``log_dir``
-    (TensorBoard `profile` plugin / XProf format). Falls back to a no-op
-    if the backend transport does not support profiling."""
-    started = False
-    try:
-        jax.profiler.start_trace(log_dir)
-        started = True
-    except Exception as e:                      # pragma: no cover - backend
-        _log.debug("jax.profiler unavailable (%s); trace() is a no-op", e)
+    (TensorBoard / XProf format)."""
+    jax.profiler.start_trace(log_dir)
     try:
         yield
     finally:
-        if started:
-            try:
-                jax.profiler.stop_trace()
-            except Exception as e:              # pragma: no cover
-                _log.debug("stop_trace failed: %s", e)
+        jax.profiler.stop_trace()
 
 
 def annotate(name: str):
-    """Named region in the profiler timeline (TraceAnnotation): wraps
-    ``jax.profiler.TraceAnnotation`` with a graceful fallback."""
-    try:
-        return jax.profiler.TraceAnnotation(name)
-    except Exception:                           # pragma: no cover
-        return contextlib.nullcontext()
+    """Named region in the profiler timeline
+    (``jax.profiler.TraceAnnotation``)."""
+    return jax.profiler.TraceAnnotation(name)
+
+
+def timed(fn, reps: int = 3):
+    """``(fn(), first-call seconds, median warm seconds)``.
+
+    Every call ends in ``jax.block_until_ready``, so the first call holds
+    tracing and compilation and the ``reps`` warm calls do not; with
+    ``reps=0`` the warm time is None."""
+    t0 = time.perf_counter()
+    out = jax.block_until_ready(fn())
+    first = time.perf_counter() - t0
+    warm = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = jax.block_until_ready(fn())
+        warm.append(time.perf_counter() - t0)
+    return out, first, statistics.median(warm) if warm else None

@@ -6,6 +6,7 @@ Krylov expv path (which shares no code with the Chebyshev recurrence).
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import scipy.linalg as sla
@@ -280,42 +281,34 @@ class TestPhivTimestepChebyshev:
         assert u.shape == (50,)
 
 
-class TestFusedChebyshev:
-    def test_fused_matches_scan_interpret(self, rng):
-        """Pallas fused plane-sweep Chebyshev (interpret mode on CPU)
-        vs the XLA scan — bitwise-same recurrence, one kernel."""
-        from exponentialutilities_jl_tpu.models.chebyshev import (
-            _chebyshev_apply_fused, _chebyshev_apply_scan, _exp_ucoeffs)
-        op = laplacian_nd_stencil(6, 6, 6, dtype=jnp.float32)
-        b = jnp.asarray(rng.standard_normal(216), jnp.float32)
-        lo, hi = op.spectral_bounds_hint()
-        c, h = 0.5 * (hi + lo), 0.5 * (hi - lo)
-        t = 0.3
-        cnp, sc = _exp_ucoeffs(t * h, 1e-7)
-        coeffs = jnp.asarray(cnp * np.exp(t * c + sc), jnp.float32)
-        w_scan = _chebyshev_apply_scan(op, b, coeffs, c, 1.0 / h)
-        w_fused = _chebyshev_apply_fused(op, b, coeffs, c, h,
-                                         interpret=True)
-        np.testing.assert_allclose(np.asarray(w_fused),
-                                   np.asarray(w_scan), rtol=2e-5,
-                                   atol=1e-6)
+def _dense_of(op):
+    """Dense f64 matrix of a matrix-free operator, column by column."""
+    n = op.shape[0]
+    eye = jnp.eye(n, dtype=op.dtype)
+    return np.asarray(jax.vmap(op.matvec)(eye), np.float64).T
 
-    def test_fused_variable_interpret(self, rng):
-        from exponentialutilities_jl_tpu.models.chebyshev import (
-            _chebyshev_apply_fused, _chebyshev_apply_scan, _exp_ucoeffs)
+
+class TestStencilChebyshevF32:
+    """f32 Chebyshev actions on 3-D stencils against the dense f64 exp."""
+
+    def test_laplacian_3d_matches_dense(self, rng):
+        op = laplacian_nd_stencil(6, 6, 6, dtype=jnp.float32)
+        b = rng.standard_normal(216).astype(np.float32)
+        w = expv_chebyshev(0.3, op, jnp.asarray(b))
+        dense = _dense_of(op)
+        ref = sla.expm(0.3 * dense) @ b.astype(np.float64)
+        assert np.linalg.norm(np.asarray(w, np.float64) - ref) \
+            / np.linalg.norm(ref) < 1e-5
+
+    def test_variable_stencil_matches_dense(self, rng):
         a = (0.5 + rng.random((6, 6, 6))).astype(np.float32)
         op = variable_diffusion_nd_stencil(a, dtype=np.float32)
-        b = jnp.asarray(rng.standard_normal(216), jnp.float32)
-        lo, hi = op.spectral_bounds_hint()
-        c, h = 0.5 * (hi + lo), 0.5 * (hi - lo)
-        cnp, sc = _exp_ucoeffs(0.2 * h, 1e-7)
-        coeffs = jnp.asarray(cnp * np.exp(0.2 * c + sc), jnp.float32)
-        w_scan = _chebyshev_apply_scan(op, b, coeffs, c, 1.0 / h)
-        w_fused = _chebyshev_apply_fused(op, b, coeffs, c, h,
-                                         interpret=True)
-        np.testing.assert_allclose(np.asarray(w_fused),
-                                   np.asarray(w_scan), rtol=2e-5,
-                                   atol=1e-6)
+        b = rng.standard_normal(216).astype(np.float32)
+        w = expv_chebyshev(0.2, op, jnp.asarray(b))
+        dense = _dense_of(op)
+        ref = sla.expm(0.2 * dense) @ b.astype(np.float64)
+        assert np.linalg.norm(np.asarray(w, np.float64) - ref) \
+            / np.linalg.norm(ref) < 1e-5
 
 
 class TestConvergenceGuards:

@@ -1,7 +1,7 @@
 """Compile-stability (no-rework) regression guards across the hot APIs.
 
 The reference pins per-call cost with allocation guards
-(/root/reference/test/basictests.jl:907-948: `@allocated` deltas on
+(reference: test/basictests.jl:907-948: `@allocated` deltas on
 phiv!/expv!/phiv_timestep! must be zero once caches are warm). The JAX
 analogue of "zero allocations" is "zero new XLA compilations": once a
 signature is warm, repeated calls — at any operator norm, time value, or

@@ -300,7 +300,7 @@ def test_gebal_rejects_tracer():
 
 class TestBatchedHigham:
     """expm_higham2005_batched: batch-uniform degree + squaring
-    (VERDICT r4 #3 — the MXU serving route for stacked input)."""
+    (VERDICT r4 #3 — the batched serving route for stacked input)."""
 
     def test_mixed_norms_vs_scipy(self, rng):
         # batch spanning four norm buckets: the batch-max degree and

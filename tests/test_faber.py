@@ -254,9 +254,8 @@ class TestFailureProtocol:
 
 
 class TestStencil3D:
-    """Faber/Leja on the asymmetric 3-D stencil container (the fused
-    recurrence path's operator class; XLA path oracle-checked here,
-    the Pallas path component-checked in test_lanczos_fused.py)."""
+    """Faber/Leja on the asymmetric 3-D stencil container, checked
+    against the dense oracle."""
 
     def _setup(self, rng):
         op = eu.advection_diffusion_3d_stencil(6, 6, 6, peclet=5.0)

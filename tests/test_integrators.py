@@ -38,6 +38,32 @@ def ac_ref():
     return Dj, f, u0, sol.y[:, -1]
 
 
+@pytest.mark.parametrize("scheme,h", [("exprb32", 0.005),
+                                      ("exprb32", 0.02),
+                                      ("exprb43", 0.02),
+                                      ("exprb43", 0.05)])
+def test_f32_error_estimate_tracks_f64(scheme, h):
+    """The embedded error vector is its own φ-action, so in f32 its WRMS
+    norm at rtol 1e-5 follows the f64 one; u⁺ minus the embedded solution
+    would cancel to roundoff of ‖u‖ and read 1.3–46× too high here."""
+    from exponentialutilities_jl_tpu.models import integrators as mi
+    from exponentialutilities_jl_tpu.utils.linop import JacobianOperator
+
+    step = {"exprb32": mi._step_exprb32, "exprb43": mi._step_exprb43}[scheme]
+    D, _, u0 = _ac_problem()
+    enorm = {}
+    for dt in ("float64", "float32"):
+        Dj = jnp.asarray(D, dt)
+
+        def f(u, Dj=Dj):
+            return Dj @ u + u - u ** 3
+
+        u = jnp.asarray(u0, dt)
+        u_new, err, _, _ = step(f, JacobianOperator(f, u), u, h, 1e-8, {})
+        enorm[dt] = mi._wrms(err, u, u_new, 1e-5, jnp.asarray(1e-7, dt))
+    assert 0.8 < enorm["float32"] / enorm["float64"] < 1.25, enorm
+
+
 def test_exprb32_linear_exact(rng):
     # linear f => g == 0 => every step is exactly expm
     n = 50

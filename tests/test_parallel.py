@@ -1,7 +1,7 @@
 """Distributed (shard_map) path on the 8-virtual-device CPU mesh.
 
 This is the test pattern SURVEY.md §4 prescribes: the same code that runs on
-a TPU pod slice runs here over ``xla_force_host_platform_device_count=8``,
+several GPUs runs here over ``xla_force_host_platform_device_count=8``,
 so the row-partitioned matvec (ppermute halo exchange), the psum-reduced
 Gram–Schmidt, and the replicated reduced problem are all exercised without
 hardware. Oracles are the single-device implementations and scipy.

@@ -111,8 +111,8 @@ def test_phi_pade_adversarial_tight(rng, name, k, solve):
     # accuracy (rtol 1e-12) across the adversarial set — tighter than the
     # 1e-8 shared bound above (VERDICT round-1 done-criterion; reference
     # algorithm: src/phi_almohy.jl:327-368). Both denominator engines:
-    # the device LU and the solver-free Newton–Schulz inverse (the
-    # f64-on-TPU engine, VERDICT r2 missing #2) must pass identically.
+    # the device LU and the solver-free Newton–Schulz inverse must pass
+    # identically.
     n = 12
     A = ADVERSARIAL[name](rng, n)
     got = np.asarray(eu.phi_pade(A, k, solve=solve))

@@ -4,6 +4,8 @@
 import importlib
 import inspect
 
+import pytest
+
 import exponentialutilities_jl_tpu as eu
 
 
@@ -49,6 +51,22 @@ def test_profiling_hooks_smoke(tmp_path):
         with annotate("expv-smoke"):
             w = eu.expv(0.1, A, jnp.asarray(b), m=10)
     assert np.all(np.isfinite(np.asarray(w)))
+
+
+@pytest.mark.parametrize("reps", [0, 1, 4])
+def test_timed_counts_calls_and_returns_last_result(reps):
+    from exponentialutilities_jl_tpu.utils.profiling import timed
+
+    calls = []
+
+    def fn():
+        calls.append(1)
+        return len(calls)
+
+    out, first, warm = timed(fn, reps)
+    assert out == reps + 1 and len(calls) == reps + 1
+    assert first >= 0
+    assert (warm is None) if reps == 0 else warm >= 0
 
 
 def test_no_tracer_leaks_representative_workload(rng=None):

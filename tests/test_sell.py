@@ -1,4 +1,4 @@
-"""SELL-window SpMV kernel (ops/kernels/sell.py): packer invariants,
+"""SELL-window packs and their SpMV (ops/sell.py): packer invariants,
 roll-gather and residue variants vs scipy, window widths (VERDICT r1
 item 1 — unstructured SpMV layout)."""
 
@@ -7,8 +7,8 @@ import pytest
 import scipy.sparse as sp
 import jax.numpy as jnp
 
-from exponentialutilities_jl_tpu.ops.kernels.sell import (
-    SellData, sell_pack, sell_spmv, sell_spmv_ref)
+from exponentialutilities_jl_tpu.ops.sell import (
+    SellData, sell_pack, sell_spmv_ref, sell_spmv_ref)
 
 
 def banded_random(rng, n, d, band):
@@ -27,10 +27,8 @@ def test_sell_matches_scipy(rng, residue):
                      residue=residue)
     x = rng.standard_normal(n).astype(np.float32)
     want = A @ x
-    y = np.asarray(sell_spmv(data, jnp.asarray(x), interpret=True))
+    y = np.asarray(sell_spmv_ref(data, jnp.asarray(x)))
     assert np.max(np.abs(y - want)) / np.max(np.abs(want)) < 1e-5
-    y2 = np.asarray(sell_spmv_ref(data, jnp.asarray(x)))
-    assert np.max(np.abs(y2 - want)) / np.max(np.abs(want)) < 1e-5
 
 
 @pytest.mark.parametrize("band,window", [(800, 2048), (2500, 4096)])
@@ -41,7 +39,7 @@ def test_sell_wider_windows(rng, band, window):
     data = sell_pack((rows, cols, vals.astype(np.float32)), n, window=window)
     x = rng.standard_normal(n).astype(np.float32)
     want = A @ x
-    y = np.asarray(sell_spmv(data, jnp.asarray(x), interpret=True))
+    y = np.asarray(sell_spmv_ref(data, jnp.asarray(x)))
     assert np.max(np.abs(y - want)) / np.max(np.abs(want)) < 1e-5
 
 
@@ -63,7 +61,7 @@ def test_sell_duplicates_and_empty_rows(rng):
     A = sp.coo_matrix((vals, (rows, cols)), shape=(n, n))
     data = sell_pack((rows, cols, vals.astype(np.float32)), n)
     x = rng.standard_normal(n).astype(np.float32)
-    y = np.asarray(sell_spmv(data, jnp.asarray(x), interpret=True))
+    y = np.asarray(sell_spmv_ref(data, jnp.asarray(x)))
     want = A @ x
     assert np.max(np.abs(y - want)) < 1e-5
 
@@ -120,21 +118,6 @@ def test_sell_operator_rcm(rng):
     assert np.max(np.abs(yp - want)) / np.max(np.abs(want)) < 1e-4
 
 
-@pytest.mark.parametrize("mode", ["roll", "rowsel"])
-def test_sell_pair_packed_indices(rng, mode):
-    from exponentialutilities_jl_tpu.ops.kernels.sell import pack_index_pairs
-    n, d, band = 3000, 9, 600
-    rows, cols, vals = banded_random(rng, n, d, band)
-    A = sp.coo_matrix((vals, (rows, cols)), shape=(n, n))
-    data = pack_index_pairs(
-        sell_pack((rows, cols, vals.astype(np.float32)), n, window=2048,
-                  mode=mode))
-    x = rng.standard_normal(n).astype(np.float32)
-    want = A @ x
-    y = np.asarray(sell_spmv(data, jnp.asarray(x), interpret=True))
-    assert np.max(np.abs(y - want)) / np.max(np.abs(want)) < 1e-5
-
-
 def test_sell_rowsel_mode(rng):
     n, d, band = 3000, 9, 600
     rows, cols, vals = banded_random(rng, n, d, band)
@@ -143,10 +126,8 @@ def test_sell_rowsel_mode(rng):
                      mode="rowsel")
     x = rng.standard_normal(n).astype(np.float32)
     want = A @ x
-    y = np.asarray(sell_spmv(data, jnp.asarray(x), interpret=True))
+    y = np.asarray(sell_spmv_ref(data, jnp.asarray(x)))
     assert np.max(np.abs(y - want)) / np.max(np.abs(want)) < 1e-5
-    y2 = np.asarray(sell_spmv_ref(data, jnp.asarray(x)))
-    assert np.max(np.abs(y2 - want)) / np.max(np.abs(want)) < 1e-5
 
 
 def scattered_random(rng, n, d, band, nfar):
@@ -170,23 +151,7 @@ def test_sell_chunked_matches_scipy(rng):
     assert data.mode == "chunked" and data.chunks == 4
     x = rng.standard_normal(n).astype(np.float32)
     want = A @ x
-    y = np.asarray(sell_spmv(data, jnp.asarray(x), interpret=True))
-    assert np.max(np.abs(y - want)) / np.max(np.abs(want)) < 1e-5
-    y2 = np.asarray(sell_spmv_ref(data, jnp.asarray(x)))
-    assert np.max(np.abs(y2 - want)) / np.max(np.abs(want)) < 1e-5
-
-
-def test_sell_chunked_pair_packed(rng):
-    from exponentialutilities_jl_tpu.ops.kernels.sell import pack_index_pairs
-    n, d, band = 2000, 6, 400
-    rows, cols, vals = scattered_random(rng, n, d, band, nfar=500)
-    A = sp.coo_matrix((vals, (rows, cols)), shape=(n, n))
-    base = sell_pack((rows, cols, vals.astype(np.float32)), n,
-                     window=1024, mode="chunked", max_chunks=6)
-    data = pack_index_pairs(base)
-    x = rng.standard_normal(n).astype(np.float32)
-    want = A @ x
-    y = np.asarray(sell_spmv(data, jnp.asarray(x), interpret=True))
+    y = np.asarray(sell_spmv_ref(data, jnp.asarray(x)))
     assert np.max(np.abs(y - want)) / np.max(np.abs(want)) < 1e-5
 
 
@@ -209,7 +174,7 @@ def test_sell_chunked_duplicates_empty_rows(rng):
     data = sell_pack((rows, cols, vals.astype(np.float32)), n,
                      window=1024, mode="chunked", max_chunks=3)
     x = rng.standard_normal(n).astype(np.float32)
-    y = np.asarray(sell_spmv(data, jnp.asarray(x), interpret=True))
+    y = np.asarray(sell_spmv_ref(data, jnp.asarray(x)))
     assert np.max(np.abs(y - np.asarray(A @ x))) < 1e-5
 
 
@@ -233,7 +198,7 @@ def test_sell_chunked_operator_in_expv(rng):
 def test_sell_save_load_roundtrip(tmp_path, rng):
     """Pack persistence: production serving packs once, loads on
     restart (packing 10M rows costs tens of host seconds)."""
-    from exponentialutilities_jl_tpu.ops.kernels.sell import (
+    from exponentialutilities_jl_tpu.ops.sell import (
         SellData, sell_pack, sell_spmv_ref)
     n = 600
     d = 5
@@ -271,23 +236,7 @@ class TestSubroll:
                          mode="subroll")
         x = rng.standard_normal(n).astype(np.float32)
         want = A @ x
-        y = np.asarray(sell_spmv(data, jnp.asarray(x), interpret=True))
-        assert np.max(np.abs(y - want)) / np.max(np.abs(want)) < 1e-5
-        y2 = np.asarray(sell_spmv_ref(data, jnp.asarray(x)))
-        assert np.max(np.abs(y2 - want)) / np.max(np.abs(want)) < 1e-5
-
-    def test_subroll_pair_packed(self, rng):
-        from exponentialutilities_jl_tpu.ops.kernels.sell import (
-            pack_index_pairs)
-        n, d, band = 3000, 9, 600
-        rows, cols, vals = banded_random(rng, n, d, band)
-        A = sp.coo_matrix((vals, (rows, cols)), shape=(n, n))
-        data = sell_pack((rows, cols, vals.astype(np.float32)), n,
-                         mode="subroll")
-        dp = pack_index_pairs(data)
-        x = rng.standard_normal(n).astype(np.float32)
-        want = A @ x
-        y = np.asarray(sell_spmv(dp, jnp.asarray(x), interpret=True))
+        y = np.asarray(sell_spmv_ref(data, jnp.asarray(x)))
         assert np.max(np.abs(y - want)) / np.max(np.abs(want)) < 1e-5
 
     def test_explicit_subroll_raises_when_wide(self, rng):
@@ -305,7 +254,7 @@ class TestSubroll:
         assert data.mode == "roll"
         A = sp.coo_matrix((vals, (rows, cols)), shape=(n, n))
         x = rng.standard_normal(n).astype(np.float32)
-        y = np.asarray(sell_spmv(data, jnp.asarray(x), interpret=True))
+        y = np.asarray(sell_spmv_ref(data, jnp.asarray(x)))
         want = A @ x
         assert np.max(np.abs(y - want)) / np.max(np.abs(want)) < 1e-5
 
@@ -316,7 +265,7 @@ class TestSubroll:
         vals = np.array([1.0, 2.0, 4.0, 3.0], np.float32)
         data = sell_pack((rows, cols, vals), n, mode="subroll")
         x = np.ones(n, np.float32)
-        y = np.asarray(sell_spmv(data, jnp.asarray(x), interpret=True))
+        y = np.asarray(sell_spmv_ref(data, jnp.asarray(x)))
         want = np.zeros(n); want[2] = 7.0; want[150] = 3.0
         np.testing.assert_allclose(y, want, atol=1e-6)
 
@@ -407,13 +356,8 @@ def test_sell_uniform_fast_path(rng):
     assert data.mode == "subroll" and data.uniform
     x = rng.standard_normal(n).astype(np.float32)
     want = A @ x
-    y = np.asarray(sell_spmv(data, jnp.asarray(x), interpret=True))
+    y = np.asarray(sell_spmv_ref(data, jnp.asarray(x)))
     assert np.max(np.abs(y - want)) / np.max(np.abs(want)) < 1e-5
-    from exponentialutilities_jl_tpu.ops.kernels.sell import (
-        pack_index_pairs)
-    dp = pack_index_pairs(data)
-    y2 = np.asarray(sell_spmv(dp, jnp.asarray(x), interpret=True))
-    assert np.max(np.abs(y2 - want)) / np.max(np.abs(want)) < 1e-5
 
 
 class TestUniformK:
@@ -441,13 +385,8 @@ class TestUniformK:
         assert np.all(np.diff(gp) == data.uk)
         x = rng.standard_normal(n).astype(np.float32)
         want = A @ x
-        y = np.asarray(sell_spmv(data, jnp.asarray(x), interpret=True))
+        y = np.asarray(sell_spmv_ref(data, jnp.asarray(x)))
         assert np.max(np.abs(y - want)) / np.max(np.abs(want)) < 1e-5
-        from exponentialutilities_jl_tpu.ops.kernels.sell import (
-            pack_index_pairs)
-        dp = pack_index_pairs(data)
-        y2 = np.asarray(sell_spmv(dp, jnp.asarray(x), interpret=True))
-        assert np.max(np.abs(y2 - want)) / np.max(np.abs(want)) < 1e-5
         yr = np.asarray(sell_spmv_ref(data, jnp.asarray(x)))
         assert np.max(np.abs(yr - want)) / np.max(np.abs(want)) < 1e-5
 
@@ -459,7 +398,7 @@ class TestUniformK:
         x = rng.standard_normal(n).astype(np.float32)
         want = sp.coo_matrix((vals, (rows, cols)),
                              shape=(n, n)).tocsr() @ x
-        y = np.asarray(sell_spmv(data, jnp.asarray(x), interpret=True))
+        y = np.asarray(sell_spmv_ref(data, jnp.asarray(x)))
         assert np.max(np.abs(y - want)) / np.max(np.abs(want)) < 1e-5
 
     def test_forced_uniform_k_raises_past_cap(self, rng):
@@ -487,7 +426,7 @@ class TestUniformK:
         x = rng.standard_normal(n).astype(np.float32)
         want = sp.coo_matrix((vals, (rows, cols)),
                              shape=(n, n)).tocsr() @ x
-        y = np.asarray(sell_spmv(d2, jnp.asarray(x), interpret=True))
+        y = np.asarray(sell_spmv_ref(d2, jnp.asarray(x)))
         assert np.max(np.abs(y - want)) / np.max(np.abs(want)) < 1e-5
 
 
@@ -507,9 +446,8 @@ class TestBucketed:
         return rows, cols, vals
 
     def test_matches_scipy_all_paths(self, rng):
-        from exponentialutilities_jl_tpu.ops.kernels.sell import (
-            sell_pack_bucketed, sell_spmv_bucketed,
-            sell_spmv_bucketed_ref, pack_index_pairs)
+        from exponentialutilities_jl_tpu.ops.sell import (
+            sell_pack_bucketed, sell_spmv_bucketed_ref)
         n = 5000
         rows, cols, vals = self._clustered(rng, n)
         A = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
@@ -519,17 +457,13 @@ class TestBucketed:
         assert bk.nnz == A.nnz
         x = rng.standard_normal(n).astype(np.float32)
         want = A @ x
-        for y in (sell_spmv_bucketed_ref(bk, jnp.asarray(x)),
-                  sell_spmv_bucketed(bk, jnp.asarray(x), interpret=True),
-                  sell_spmv_bucketed(pack_index_pairs(bk), jnp.asarray(x),
-                                     interpret=True)):
-            err = np.max(np.abs(np.asarray(y) - want)) / np.max(
-                np.abs(want))
-            assert err < 1e-5
+        y = sell_spmv_bucketed_ref(bk, jnp.asarray(x))
+        err = np.max(np.abs(np.asarray(y) - want)) / np.max(np.abs(want))
+        assert err < 1e-5
 
     def test_zero_class_padding(self, rng):
         # within a class there is ZERO padding: tiles = k * groups
-        from exponentialutilities_jl_tpu.ops.kernels.sell import (
+        from exponentialutilities_jl_tpu.ops.sell import (
             sell_pack_bucketed)
         n = 4000
         rows, cols, vals = self._clustered(rng, n)
@@ -555,7 +489,7 @@ class TestBucketed:
         op = eu.SellOperator.from_coo(A.row, A.col, A.data / 20, n,
                                       dtype=np.float64, mode="bucketed",
                                       is_hermitian=True)
-        from exponentialutilities_jl_tpu.ops.kernels.sell import (
+        from exponentialutilities_jl_tpu.ops.sell import (
             SellBucketed)
         assert isinstance(op.data, SellBucketed)
         # opnorm hint bounds the true inf-norm
@@ -568,7 +502,7 @@ class TestBucketed:
         assert np.linalg.norm(w - want) / np.linalg.norm(want) < 1e-9
 
     def test_save_load_roundtrip(self, rng, tmp_path):
-        from exponentialutilities_jl_tpu.ops.kernels.sell import (
+        from exponentialutilities_jl_tpu.ops.sell import (
             SellBucketed, sell_pack_bucketed, sell_spmv_bucketed_ref)
         n = 3000
         rows, cols, vals = self._clustered(rng, n)
@@ -584,7 +518,7 @@ class TestBucketed:
 
     def test_uniform_degree_single_bucket(self, rng):
         # uniform low degree -> exactly one static bucket, no dynamic
-        from exponentialutilities_jl_tpu.ops.kernels.sell import (
+        from exponentialutilities_jl_tpu.ops.sell import (
             sell_pack_bucketed, sell_spmv_bucketed_ref)
         n, d, band = 3000, 6, 500
         rows, cols, vals = banded_random(rng, n, d, band)
@@ -597,7 +531,7 @@ class TestBucketed:
         assert np.max(np.abs(y - want)) / np.max(np.abs(want)) < 1e-5
 
     def test_requires_subroll_locality(self, rng):
-        from exponentialutilities_jl_tpu.ops.kernels.sell import (
+        from exponentialutilities_jl_tpu.ops.sell import (
             sell_pack_bucketed)
         n, d, band = 4096, 7, 2500       # too wide for 1024 subwindows
         rows, cols, vals = banded_random(rng, n, d, band)
@@ -628,8 +562,8 @@ class TestSegmented:
         return rows, cols, vals
 
     def test_matches_scipy_kernel_and_ref(self, rng):
-        from exponentialutilities_jl_tpu.ops.kernels.sell import (
-            sell_pack_seg, sell_spmv_seg, sell_spmv_seg_ref)
+        from exponentialutilities_jl_tpu.ops.sell import (
+            sell_pack_seg, sell_spmv_seg_ref, sell_spmv_seg_ref)
         for n, band in ((3000, 700), (513, 64)):
             r, c, v = self._scattered_mixed(rng, n, band)
             A = sp.coo_matrix((v, (r, c)), shape=(n, n)).tocsr()
@@ -638,17 +572,15 @@ class TestSegmented:
             assert pk.base.uk == 1 and pk.base.seg == 0 and pk.lmax == 5
             x = rng.standard_normal(n).astype(np.float32)
             want = A @ x
-            for y in (sell_spmv_seg_ref(pk, jnp.asarray(x)),
-                      sell_spmv_seg(pk, jnp.asarray(x), interpret=True)):
-                err = (np.max(np.abs(np.asarray(y) - want))
-                       / np.max(np.abs(want)))
-                assert err < 5e-6
+            y = sell_spmv_seg_ref(pk, jnp.asarray(x))
+            err = np.max(np.abs(np.asarray(y) - want)) / np.max(np.abs(want))
+            assert err < 5e-6
 
     def test_long_segments_straddle_groups(self, rng):
         # rows of up to ~50 lanes, many straddling a 128-lane boundary:
         # the two-head gather (h1 + h2) must reassemble exactly
-        from exponentialutilities_jl_tpu.ops.kernels.sell import (
-            sell_pack_seg, sell_spmv_seg)
+        from exponentialutilities_jl_tpu.ops.sell import (
+            sell_pack_seg, sell_spmv_seg_ref)
         n = 2000
         deg = np.full(n, 4, np.int64)
         deg[::97] = 900                  # dedup brings it to ~380
@@ -662,11 +594,11 @@ class TestSegmented:
         assert pk.base.seg >= 6          # genuinely long segments
         x = rng.standard_normal(n).astype(np.float32)
         want = A @ x
-        y = np.asarray(sell_spmv_seg(pk, jnp.asarray(x), interpret=True))
+        y = np.asarray(sell_spmv_seg_ref(pk, jnp.asarray(x)))
         assert np.max(np.abs(y - want)) / np.max(np.abs(want)) < 5e-6
 
     def test_span_violation_raises(self, rng):
-        from exponentialutilities_jl_tpu.ops.kernels.sell import (
+        from exponentialutilities_jl_tpu.ops.sell import (
             sell_pack_seg)
         n = 4000
         rows = np.arange(n, dtype=np.int64)
@@ -676,7 +608,7 @@ class TestSegmented:
             sell_pack_seg((rows, cols, vals), n)
 
     def test_save_load_roundtrip(self, rng, tmp_path):
-        from exponentialutilities_jl_tpu.ops.kernels.sell import (
+        from exponentialutilities_jl_tpu.ops.sell import (
             SellSeg, sell_pack_seg, sell_spmv_seg_ref)
         r, c, v = self._scattered_mixed(rng, 1500, 300)
         pk = sell_pack_seg((r, c, v), 1500)

@@ -1,4 +1,4 @@
-"""Sparse containers (ELL / block-ELL / banded) + Pallas SpMV (interpret).
+"""Sparse containers (ELL / block-ELL / banded) and their XLA SpMVs.
 
 Oracle pattern follows the reference's tests: sparse operators are validated
 against dense equivalents, then driven through the Krylov stack
@@ -15,7 +15,6 @@ from exponentialutilities_jl_tpu import (
     blockell_from_scipy, ell_from_scipy, expv,
     laplacian_1d, poisson_2d, laplacian_3d, advection_diffusion_1d,
 )
-from exponentialutilities_jl_tpu.ops.kernels.spmv import blockell_spmv
 
 
 def _random_sparse(rng, n, density=0.1):
@@ -68,13 +67,12 @@ class TestBlockELL:
         np.testing.assert_allclose(op.matvec(jnp.asarray(x)), A @ x,
                                    rtol=1e-12, atol=1e-12)
 
-    def test_pallas_kernel_interpret(self, rng):
+    def test_f32_matvec(self, rng):
         n, br = 64, 8
         A = _random_sparse(rng, n).toarray()
-        op = BlockELLOperator.from_dense(A, br)
+        op = BlockELLOperator.from_dense(A.astype(np.float32), br)
         x = jnp.asarray(rng.standard_normal(n), dtype=jnp.float32)
-        y = blockell_spmv(op.blocks.astype(jnp.float32), op.bcols, x,
-                          interpret=True)
+        y = op.matvec(x)
         np.testing.assert_allclose(y, A.astype(np.float32) @ np.asarray(x),
                                    rtol=1e-4, atol=1e-4)
 
@@ -189,30 +187,12 @@ class TestStencil:
         np.testing.assert_allclose(np.asarray(w), sla.expm(0.1 * dense) @ b,
                                    rtol=1e-9, atol=1e-10)
 
-    def test_banded_pallas_kernel_matches(self, rng):
-        """banded_spmv (interpret mode) vs BandedOperator.matvec."""
+    def test_banded_f32_matvec_matches_dense(self, rng):
+        """f32 BandedOperator.matvec vs the to_dense oracle."""
         from exponentialutilities_jl_tpu import poisson_2d
-        # interpret mode only exercises shapes/logic on CPU
         op = poisson_2d(16, 8, dtype=jnp.float32)
         x = jnp.asarray(rng.standard_normal(128), jnp.float32)
-        # CPU: no TPU pallas — compare the XLA matvec against to_dense oracle
         dense = np.asarray(op.to_dense())
         np.testing.assert_allclose(np.asarray(op.matvec(x)),
                                    dense @ np.asarray(x), rtol=1e-5,
                                    atol=1e-4)
-
-
-def test_blockell_dma_gather_flag_interpret(rng):
-    # dma_gather=True exercises the DMA-engine gather path on real TPU; in
-    # interpret mode it falls back to the VPU gather but must accept the
-    # flag and produce identical results (on-chip agreement is checked by
-    # benchmarks/run_baseline.py's kernel table — VERDICT r1 untested path).
-    from exponentialutilities_jl_tpu.ops.kernels.spmv import blockell_spmv
-    import jax.numpy as jnp
-    nbr, w, br, bc = 8, 3, 8, 8
-    blocks = jnp.asarray(rng.standard_normal((nbr, w, br, bc)), jnp.float32)
-    bcols = jnp.asarray(rng.integers(0, nbr, (nbr, w)), jnp.int32)
-    x = jnp.asarray(rng.standard_normal(nbr * br), jnp.float32)
-    y0 = blockell_spmv(blocks, bcols, x, interpret=True)
-    y1 = blockell_spmv(blocks, bcols, x, interpret=True, dma_gather=True)
-    np.testing.assert_allclose(np.asarray(y0), np.asarray(y1), rtol=1e-6)

@@ -436,7 +436,7 @@ class TestDeviceResidentNW:
         assert rel < 1e-6, rel
 
     def test_expm_taylor_reduced_engine(self, rng):
-        # the solver-free reduced engine (f64-on-TPU path) must agree
+        # the solver-free reduced engine (expm_method="taylor") must agree
         n, p = 80, 2
         A = laplacian_1d(n)
         B = rng.standard_normal((n, p + 1))
